@@ -14,25 +14,38 @@ order, every phase failing loudly (nonzero exit):
 4. K2 (fused BP sweep) against its plain version on the card in its three
    modes on the same batch (M=384, grid 128x128x64): counts, messages, the
    scattered grid, depths, and the times;
-5. the raynet forward pass end to end through its user entry point
-   (``RayNetForwardPass.forward_pass``) on the paper-resolution ring rig:
-   1600x1200, focal 2750, 6 images, 2 reference views, 4 neighbours,
+5. K3 (voxel traversal) against its plain version on the same batch:
+   indices and counts identical, counts equal to K2's, and the times;
+6. the three forward passes end to end through their user entry point
+   (``forward_pass`` of ``RayNetForwardPass``, ``MultiViewCNNForwardPass``
+   and ``MultiViewCNNVoxelSpaceForwardPass``) on the paper-resolution ring
+   rig: 1600x1200, focal 2750, 6 images, 2 reference views, 4 neighbours,
    simple_cnn with seeded random weights and bf16 features, D=32, grid
-   128x128x64, M=384, 65,536-ray batches, gamma 0.05, 3 BP iterations and
-   the depth sweep. Wall time, rays/s, phases, kernel launch counts (must
-   be > 0), peak memory and the depth maps' sanity; then the same pass at
-   400x300 (focal scaled) on the card and, with the plain versions, on the
-   CPU, whose depth maps must agree.
+   128x128x64, M=384, 65,536-ray batches (raynet: gamma 0.05, 3 BP
+   iterations and the depth sweep). For each: the kernel launch counts,
+   set to 0 just before the pass and read just after (each kernel the pass
+   runs must have launched), wall time, rays/s, phases, peak memory and the
+   depth maps' sanity; then the same pass at 400x300 (focal scaled) on the
+   card and, with the plain versions, on the CPU, whose depth maps must
+   agree;
+7. the CLI (``raynet_tpu_torch.scripts.forward_pass.main``) with the
+   ``multi_view_cnn_voxel_space`` factory on the card, on the 400x300 rig
+   written to a temporary directory in Restrepo format; its depth maps must
+   equal the pass's on the same rig, and no module of JAX or of the JAX
+   package may have been imported.
 
-The last two lines are the kernels' JSON summary and the card's name and
-power limit before the final JSON line ``{"ok": true, "device": ...}``.
-Without a CUDA device, or without the repository around it, the script
-exits nonzero and prints no result.
+The last lines are a JSON summary of the passes, the kernels' JSON line
+(times, bounds, launches), and the card's name and power limit before the
+final JSON line ``{"ok": true, "device": ...}``. Without a CUDA device, or
+without the repository around it, the script exits nonzero and prints no
+result.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -44,6 +57,10 @@ M = 384
 D = 32
 GAMMA = 0.05
 PADDING = 11
+# NVIDIA H100 SXM data sheet at 700 W: HBM3 bytes/s, dense float32 FLOP/s
+# outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def log(*args):
@@ -85,6 +102,41 @@ def rel_agreement(a, b, rtol):
     return float(np.mean(np.abs(a - b) <= rtol * np.abs(b)))
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` and compute ``flops`` float32 operations."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def write_restrepo_scene(scene, root):
+    """Write an in-memory ring rig as a Restrepo scene directory (imgs/,
+    cams_krt/, scene_info.xml) under ``root``; returns the dataset dir."""
+    from PIL import Image
+
+    scene_dir = os.path.join(root, "scene_1")
+    os.makedirs(os.path.join(scene_dir, "imgs"))
+    os.makedirs(os.path.join(scene_dir, "cams_krt"))
+    for i in range(scene.n_images):
+        im = scene.get_image(i)
+        Image.fromarray(im.image_u8).save(
+            os.path.join(scene_dir, "imgs", "frame%05d.png" % (i + 1,)))
+        cam = im.camera
+        rows = ([" ".join("%.9g" % v for v in row) for row in cam.K]
+                + [" ".join("%.9g" % v for v in row) for row in cam.R]
+                + [" ".join("%.9g" % v for v in cam.t.ravel())])
+        with open(os.path.join(scene_dir, "cams_krt",
+                               "frame%05d_cam.txt" % (i + 1,)), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    lo, hi = scene.bbox[0, :3], scene.bbox[0, 3:]
+    with open(os.path.join(scene_dir, "scene_info.xml"), "w") as f:
+        f.write('<?xml version="1.0"?>\n<info>\n  <bbox minx="%r" miny="%r" '
+                'minz="%r" maxx="%r" maxy="%r" maxz="%r"/>\n</info>\n'
+                % tuple(float(v) for v in (*lo, *hi)))
+    return root
+
+
 def main():
     import torch
 
@@ -92,7 +144,11 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from raynet_tpu_torch.common.ring_scene import RingScene
-    from raynet_tpu_torch.inference import RayNetForwardPass
+    from raynet_tpu_torch.inference import (
+        MultiViewCNNForwardPass,
+        MultiViewCNNVoxelSpaceForwardPass,
+        RayNetForwardPass,
+    )
     from raynet_tpu_torch.models.feature_extractor import (
         FeatureExtractor,
         zeropad_images,
@@ -105,7 +161,12 @@ def main():
         plane_sweep_scores,
         plane_sweep_scores_reference,
     )
+    from raynet_tpu_torch.ops.ray_marching import (
+        voxel_traversal_flat,
+        voxel_traversal_flat_reference,
+    )
     from raynet_tpu_torch.ops.sampling import segments_in_bbox
+    from raynet_tpu_torch.scripts import forward_pass as cli
 
     dev = torch.device("cuda", 0)
     failures = []
@@ -172,7 +233,18 @@ def main():
     check(k1_err <= 1e-5, "max |score diff| %.3e <= 1e-5" % k1_err)
     k1_ms = cuda_ms(torch, lambda: plane_sweep_scores(*ps_args))
     k1_plain_ms = cuda_ms(torch, lambda: plane_sweep_scores_reference(*ps_args))
-    log("  K1 %.3f ms, plain %.3f ms (median of 7)" % (k1_ms, k1_plain_ms))
+    # bound: each (view, feature cell) row the batch touches read once, the
+    # endpoints and P read, S written; 3 F + 20 flops per (ray, plane, view)
+    V, Hf, Wf, F = features.shape
+    rows = cells_p[..., 1].long() * Wf + cells_p[..., 0].long()
+    rows = rows + torch.arange(V, device=dev)[None, None, :] * (Hf * Wf)
+    n_rows = int(torch.unique(rows).numel())
+    k1_bytes = (n_rows * F * features.element_size() + 2 * N_RAYS * 3 * 4
+                + V * 12 * 4 + N_RAYS * D * 4)
+    k1_bound_ms, k1_bound_by = bound(k1_bytes, N_RAYS * D * V * (3 * F + 20))
+    log("  K1 %.3f ms, plain %.3f ms (median of 7); bound %.4f ms (%s: %d "
+        "feature rows, %.1f MB)" % (k1_ms, k1_plain_ms, k1_bound_ms,
+                                    k1_bound_by, n_rows, k1_bytes / 1e6))
 
     # 4. K2
     # Tolerances: counts exact. First iteration (mu is the constant
@@ -241,7 +313,7 @@ def main():
         return ms, plain_ms
 
     # first iteration
-    (mk, _, _), gk, (m1, _, _), g1 = sweep_both(None, None, "first")
+    (mk, k2_counts, _), gk, (m1, _, _), g1 = sweep_both(None, None, "first")
     err = max(strict("first: messages", mk, m1), strict("first: grid", gk, g1))
     g1 = g1 + prior  # the next iteration's grid
     ms, plain_ms = timed("first", None, None)
@@ -285,61 +357,160 @@ def main():
     ms, plain_ms = timed("depth", m2, g2)
     k2["depth"] = {"agreement": depth_agree, "max_abs_err": float(
         np.abs(a - b).max()), "ms": ms, "plain_ms": plain_ms}
+
+    # 5. K3
+    log("== 5. K3 voxel traversal vs plain, M=%d, grid %s" % (M, GRID))
+    idx_k, cnt_k = voxel_traversal_flat(bbox, rs, re, GRID, M)
+    idx_p, cnt_p = voxel_traversal_flat_reference(bbox, rs, re, GRID, M)
+    torch.cuda.synchronize()
+    k3_mism = int((idx_k != idx_p).sum())
+    k3_err = float((idx_k - idx_p).abs().max())
+    check(k3_mism == 0 and torch.equal(idx_k, idx_p),
+          "K3 indices identical to the plain version's (%d differ)" % k3_mism)
+    check(bool(torch.equal(cnt_k, cnt_p)),
+          "K3 counts identical (mean %.2f, max %d)"
+          % (float(cnt_p.float().mean()), int(cnt_p.max())))
+    check(bool(torch.equal(cnt_k, k2_counts)),
+          "K3 counts equal K2's first-mode counts")
+    k3_ms = cuda_ms(torch, lambda: voxel_traversal_flat(bbox, rs, re, GRID, M))
+    k3_plain_ms = cuda_ms(torch, lambda: voxel_traversal_flat_reference(
+        bbox, rs, re, GRID, M), reps=3, warmup=1)
+    # bounds from this batch's march: visited cells and distinct cells
+    visits = int(cnt_p.sum())
+    visited = torch.arange(M, device=dev)[None, :] < cnt_p[:, None]
+    cells = int(torch.unique(idx_p[visited]).numel())
+    del idx_k, idx_p, visited
+    ends_b = 2 * N_RAYS * 3 * 4
+    k3_bound_ms, k3_bound_by = bound(
+        N_RAYS * M * 4 + N_RAYS * 4 + ends_b + 24, visits * 25)
+    log("  K3 %.3f ms, plain %.3f ms; bound %.4f ms (%s); %d visits, %d "
+        "distinct cells" % (k3_ms, k3_plain_ms, k3_bound_ms, k3_bound_by,
+                            visits, cells))
+    # K2 per mode: the endpoints, valid, S and (message, depth) the visited
+    # messages and grid cells read once; messages, counts, depth and the
+    # grid cells (atomics) written once; ~60 flops per visited cell
+    common_b = ends_b + N_RAYS * 4 + N_RAYS * D * 4 + N_RAYS * 4
+    k2_bytes = {
+        "first": common_b + N_RAYS * M * 4 + cells * 4,
+        "message": common_b + visits * 4 + 2 * cells * 4 + N_RAYS * M * 4,
+        "depth": common_b + visits * 4 + cells * 4 + N_RAYS * 4,
+    }
+    for mode, nbytes in k2_bytes.items():
+        k2[mode]["bound_ms"], k2[mode]["bound_by"] = bound(nbytes, visits * 60)
+        log("  K2 %s: bound %.4f ms (%.1f MB), measured %.3f ms"
+            % (mode, k2[mode]["bound_ms"], nbytes / 1e6, k2[mode]["ms"]))
     del S_k, S_p, cells_k, cells_p, features, m_mod, m1, m2
 
-    # 5. end to end
-    log("== 5. raynet forward pass, %dx%d, 2 reference views of 6 images" % (W, H))
-    fp = RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
-                           device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    plane_sweep_scores.launches = 0
-    bp_sweep.launches = 0
-    t0 = time.perf_counter()
-    maps = list(fp.forward_pass(scene, (0, 2, 1)))
-    wall = time.perf_counter() - t0
-    launches = {"plane_sweep": plane_sweep_scores.launches,
-                "bp_sweep": bp_sweep.launches}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    n_rays = 2 * H * W
-    log("  wall %.3f s, %.0f rays/s (%d rays x 4 sweeps + plane sweep)"
-        % (wall, n_rays / wall, n_rays))
-    phases = {k: v["total_s"] for k, v in fp.timer.summary().items()}
-    for k, v in fp.timer.summary().items():
-        log("  phase %-28s %.3f s (%d)" % (k, v["total_s"], v["count"]))
-    log("  launches", launches, "peak device memory %.2f GB" % peak_gb)
-    check(all(v > 0 for v in launches.values()), "both kernels launched")
-    allmaps = np.stack(maps)
-    nz = allmaps[allmaps > 0]
-    check(allmaps.shape == (2, H, W), "depth maps %s" % (allmaps.shape,))
-    check(bool(np.isfinite(allmaps).all()), "all depths finite")
-    share = nz.size / allmaps.size
-    # the +-3 bbox covers roughly half the width and 70% of the height of
-    # each view, so about a third of the rays reach the grid
-    check(share > 0.1, "nonzero share %.4f" % share)
-    if nz.size:
-        log("  depth range [%.3f, %.3f]" % (nz.min(), nz.max()))
-        check(nz.min() >= 10.0 and nz.max() <= 30.0,
-              "depths inside the ring's camera-to-bbox range [10, 30]")
-    del fp, maps
-
+    # 6. the three passes end to end
+    counters = {"plane_sweep_scores": plane_sweep_scores,
+                "voxel_traversal_flat": voxel_traversal_flat,
+                "bp_sweep": bp_sweep}
+    passes = (
+        ("raynet", RayNetForwardPass, {"plane_sweep_scores", "bp_sweep"}),
+        ("multi_view_cnn", MultiViewCNNForwardPass, {"plane_sweep_scores"}),
+        ("multi_view_cnn_voxel_space", MultiViewCNNVoxelSpaceForwardPass,
+         {"plane_sweep_scores", "voxel_traversal_flat"}),
+    )
     small = RingScene(6, 300, 400, 2750.0 / 4, angle_origin=1, seed=0)
-    fp_k = RayNetForwardPass(model, gp, None, small.image_shape, N_RAYS,
-                             device=dev)
-    t0 = time.perf_counter()
-    maps_k = np.stack(list(fp_k.forward_pass(small, (0, 2, 1))))
-    t_k = time.perf_counter() - t0
-    # the same CNN (on the card) feeds the CPU pass: only the kernels differ
-    fp_p = RayNetForwardPass(model, gp, None, small.image_shape, N_RAYS,
-                             device="cpu")
-    t0 = time.perf_counter()
-    maps_p = np.stack(list(fp_p.forward_pass(small, (0, 2, 1))))
-    t_p = time.perf_counter() - t0
-    agree = rel_agreement(maps_k, maps_p, 1e-3)
-    same_mask = bool(((maps_k > 0) == (maps_p > 0)).all())
-    log("  400x300: kernels on the card %.3f s, plain on the CPU %.3f s" % (t_k, t_p))
-    check(agree >= 0.999, "400x300 depth agreement %.6f within 1e-3 relative" % agree)
-    check(same_mask, "400x300 zero/nonzero masks identical")
+    total_launches = dict.fromkeys(counters, 0)
+    results = {}
+    n_rays = 2 * H * W
+    for name, cls, used in passes:
+        log("== 6. %s forward pass, %dx%d, 2 reference views of 6 images"
+            % (name, W, H))
+        fp = cls(model, gp, None, scene.image_shape, N_RAYS, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        maps = list(fp.forward_pass(scene, (0, 2, 1)))
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        for k, v in launches.items():
+            total_launches[k] += v
+        log("  wall %.3f s, %.0f rays/s (%d rays)" % (wall, n_rays / wall,
+                                                       n_rays))
+        phases = {k: v["total_s"] for k, v in fp.timer.summary().items()}
+        for k, v in fp.timer.summary().items():
+            log("  phase %-28s %.3f s (%d)" % (k, v["total_s"], v["count"]))
+        log("  launches", launches, "peak device memory %.2f GB" % peak_gb)
+        check(all(launches[k] > 0 for k in used)
+              and all(v == 0 for k, v in launches.items() if k not in used),
+              "%s: launched %s and no other kernel" % (name, sorted(used)))
+        allmaps = np.stack(maps)
+        nz = allmaps[allmaps > 0]
+        check(allmaps.shape == (2, H, W), "depth maps %s" % (allmaps.shape,))
+        check(bool(np.isfinite(allmaps).all()), "all depths finite")
+        share = nz.size / allmaps.size
+        # the +-3 bbox covers roughly half the width and 70% of the height
+        # of each view, so about a third of the rays reach the grid
+        check(share > 0.1, "nonzero share %.4f" % share)
+        if nz.size:
+            log("  depth range [%.3f, %.3f]" % (nz.min(), nz.max()))
+            check(nz.min() >= 10.0 and nz.max() <= 30.0,
+                  "depths inside the ring's camera-to-bbox range [10, 30]")
+        del fp, maps, allmaps
+
+        fp_k = cls(model, gp, None, small.image_shape, N_RAYS, device=dev)
+        t0 = time.perf_counter()
+        maps_k = np.stack(list(fp_k.forward_pass(small, (0, 2, 1))))
+        t_k = time.perf_counter() - t0
+        # the same CNN (on the card) feeds the CPU pass: only the kernels
+        # differ
+        fp_p = cls(model, gp, None, small.image_shape, N_RAYS, device="cpu")
+        t0 = time.perf_counter()
+        maps_p = np.stack(list(fp_p.forward_pass(small, (0, 2, 1))))
+        t_p = time.perf_counter() - t0
+        agree = rel_agreement(maps_k, maps_p, 1e-3)
+        same_mask = bool(((maps_k > 0) == (maps_p > 0)).all())
+        log("  400x300: kernels on the card %.3f s, plain on the CPU %.3f s"
+            % (t_k, t_p))
+        check(agree >= 0.999,
+              "400x300 depth agreement %.6f within 1e-3 relative" % agree)
+        check(same_mask, "400x300 zero/nonzero masks identical")
+        results[name] = {"wall_s": wall, "rays_per_s": n_rays / wall,
+                         "peak_device_gb": peak_gb, "phases_s": phases,
+                         "launches": launches, "agreement_400x300": agree}
+        if name == "multi_view_cnn_voxel_space":
+            voxel_small = maps_k
+        del fp_k, fp_p, maps_k, maps_p
+
+    # 7. the CLI on a scene on disk
+    log("== 7. CLI, multi_view_cnn_voxel_space on the 400x300 rig on disk")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_restrepo_scene(small, os.path.join(tmp, "data"))
+        out = os.path.join(tmp, "out")
+        for c in counters.values():
+            c.launches = 0
+        cli.main([
+            data, out, "--scene_idx", "0",
+            "--forward_pass_factory", "multi_view_cnn_voxel_space",
+            "--start_end", "0,2", "--depth_planes", str(D),
+            "--grid_shape", ",".join(str(g) for g in GRID),
+            "--maximum_number_of_marched_voxels", str(M),
+            "--rays_batch", str(N_RAYS), "--device", "cuda",
+        ])
+        cli_launches = {k: c.launches for k, c in counters.items()}
+        cli_maps = np.stack([np.load(os.path.join(out, "depth_%03d.npy" % i))
+                             for i in range(2)])
+    # the CLI draws the same seed-0 weights, without the bf16 cast
+    fp = MultiViewCNNVoxelSpaceForwardPass(
+        FeatureExtractor("simple_cnn", seed=0, device=dev), gp, None,
+        small.image_shape, N_RAYS, device=dev)
+    ref_maps = np.stack(list(fp.forward_pass(small, (0, 2, 1))))
+    cli_agree = rel_agreement(cli_maps, ref_maps, 1e-3)
+    log("  launches", cli_launches, "identical to the pass: %s"
+        % bool(np.array_equal(cli_maps, ref_maps)))
+    check(cli_launches["plane_sweep_scores"] > 0
+          and cli_launches["voxel_traversal_flat"] > 0,
+          "CLI launched K1 and K3")
+    check(cli_maps.shape == voxel_small.shape
+          and bool(np.array_equal(cli_maps > 0, ref_maps > 0))
+          and cli_agree >= 0.999,
+          "CLI depth maps %s agree with the pass on the same rig: %.6f"
+          % (cli_maps.shape, cli_agree))
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "raynet_tpu"))
@@ -353,23 +524,29 @@ def main():
         {"name": "plane_sweep_scores", "route": "cuda",
          "source": "raynet_tpu_torch/csrc/planesweep.cu",
          "replaces": "raynet_tpu/ops/pallas/planesweep.py:84",
-         "launches": launches["plane_sweep"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": total_launches["plane_sweep_scores"],
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound_ms, "bound_by": k1_bound_by,
+         "library_ms": None},
         {"name": "bp_sweep", "route": "cuda",
          "source": "raynet_tpu_torch/csrc/bp_sweep.cu",
          "replaces": "raynet_tpu/ops/pallas/bp_beam.py:1062",
-         "launches": launches["bp_sweep"],
-         # first iteration and moderate-mu message mode; per mode below
+         "launches": total_launches["bp_sweep"],
+         # first iteration and moderate-mu message mode; per mode above
          "max_abs_err": max(k2["first"]["max_abs_err"],
                             k2["message"]["max_abs_err"]),
-         "ms": k2["message"]["ms"], "plain_ms": k2["message"]["plain_ms"]},
+         "ms": k2["message"]["ms"], "plain_ms": k2["message"]["plain_ms"],
+         "bound_ms": k2["message"]["bound_ms"],
+         "bound_by": k2["message"]["bound_by"], "library_ms": None},
+        {"name": "voxel_traversal_flat", "route": "cuda",
+         "source": "raynet_tpu_torch/csrc/traversal.cu",
+         "replaces": "raynet_tpu/ops/pallas/traversal.py:28",
+         "launches": total_launches["voxel_traversal_flat"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
+         "library_ms": None},
     ]
-    print(json.dumps({
-        "bp_sweep_modes": k2,
-        "end_to_end": {"wall_s": wall, "rays_per_s": n_rays / wall,
-                       "peak_device_gb": peak_gb, "phases_s": phases,
-                       "agreement_400x300": agree},
-    }))
+    print(json.dumps({"bp_sweep_modes": k2, "passes": results}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

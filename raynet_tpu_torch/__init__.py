@@ -1,15 +1,17 @@
 """raynet_tpu_torch — the PyTorch / CUDA port of raynet_tpu.
 
-RayNet inference (the ``raynet`` forward-pass factory) on one NVIDIA H100:
-plain PyTorch for the tensor glue, and hand-written CUDA C++ kernels
-(``csrc/``, built for ``sm_90a`` at first use) for the plane sweep and the
+RayNet inference (the ``multi_view_cnn``, ``multi_view_cnn_voxel_space`` and
+``raynet`` forward-pass factories) on one NVIDIA H100: plain PyTorch for the
+tensor glue, and hand-written CUDA C++ kernels (``csrc/``, built for
+``sm_90a`` at first use) for the plane sweep, the voxel traversal and the
 fused BP sweep. Every kernel has a plain-PyTorch version beside it; a
 wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors, never one in place of the other.
 
-The JAX package ``raynet_tpu`` is the reference; this package imports only
-its framework-free numpy modules (cameras, generation parameters, dataset
-readers, numpy utilities) and never ``jax``.
+The JAX package ``raynet_tpu`` is the reference. This package imports
+nothing of it and never ``jax``: it keeps its own copies of the data layer
+(scenes, cameras, images, dataset readers, generation parameters) in
+``common/`` and ``utils/``.
 """
 
 __version__ = "0.1.0"

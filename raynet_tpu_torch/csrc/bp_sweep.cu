@@ -14,7 +14,8 @@
 // Per ray, in order:
 //   A. march the grid (march.cuh) up to M cells, keeping the flat indices,
 //      and hat-map the D plane scores onto each visited cell's centre
-//      (t projected on the segment, clipped to [1e-4, 1-1e-4]); the sum of
+//      (t projected on the segment, clipped to [1e-4, 1-1e-4], then
+//      interpolated between the two planes that bracket it); the sum of
 //      the mapped scores renormalises them (mask: k < count);
 //   B. clip to [1e-5, 1-1e-5] and renormalise again (mask: count > 1);
 //   C. message modes: the forward recurrence, for its total: mu =
@@ -128,11 +129,13 @@ __global__ void bp_sweep_kernel(
                                 (c[1] - rs[1]) * ray[1] +
                                 (c[2] - rs[2]) * ray[2]) / rr,
                                kTLo, kTHi);
-        float s = 0.0f;
-        for (int d = 0; d < D; ++d) {
-          const float w = maxf(1.0f - fabsf(t - (float)d / scale) * scale, 0.0f);
-          s = s + S[d] * w;
-        }
+        // the hat sum as the interpolation between the bracketing planes
+        // (ops/planes_voxels.depth_planes_to_voxels); a NaN t gives lo 0
+        const float x = t * scale;
+        int lo = (int)floorf(x);
+        lo = lo < 0 ? 0 : (lo > D - 2 ? D - 2 : lo);
+        const float f = x - (float)lo;
+        const float s = S[lo] + (S[lo + 1] - S[lo]) * f;
         idx[(size_t)count * N] = march_flat(m);
         sv[(size_t)count * N] = s;
         total1 += s;

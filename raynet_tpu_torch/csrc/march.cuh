@@ -1,6 +1,6 @@
 // Amanatides-Woo voxel march of one ray segment, as a __device__ routine
-// shared by the port's kernels (K2 now; the standalone traversal kernel K3,
-// raynet_tpu/ops/pallas/traversal.py::_kernel, when it is ported).
+// shared by the port's kernels: K2 (bp_sweep.cu) and the standalone
+// traversal kernel K3 (traversal.cu), so both order crossings identically.
 //
 // Semantics of raynet_tpu/ops/ray_marching.voxel_traversal (and
 // raynet_tpu_torch/ops/ray_marching.py), bit for bit when built with

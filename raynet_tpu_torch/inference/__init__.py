@@ -1,5 +1,7 @@
 from .forward_pass import (  # noqa: F401
     ForwardPass,
+    MultiViewCNNForwardPass,
+    MultiViewCNNVoxelSpaceForwardPass,
     RayNetForwardPass,
     get_forward_pass_factory,
 )

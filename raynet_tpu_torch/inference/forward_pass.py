@@ -1,8 +1,14 @@
-"""Inference orchestration: the ``raynet`` forward pass.
+"""Inference orchestration: the ``multi_view_cnn``,
+``multi_view_cnn_voxel_space`` and ``raynet`` forward passes.
 
 Port of ``raynet_tpu/inference/forward_pass.py``: the ``ForwardPass`` base
-(:109-583) and ``RayNetForwardPass`` (:658) on the reference schedule
-(raynet/forward_pass.py:579-748). For each call the pass
+(:109-583), ``MultiViewCNNForwardPass`` (:587),
+``MultiViewCNNVoxelSpaceForwardPass`` (:621) and ``RayNetForwardPass``
+(:658). The first two run
+one fused step per ray batch of each reference view (the plane sweep and
+its argmax depth; with the voxel traversal and the depth->voxel mapping in
+between for the voxel-space pass). The raynet pass follows the reference
+schedule (raynet/forward_pass.py:579-748); for each call it
 
 1. computes the CNN features of every image it needs, once, cached per image;
 2. computes the plane-sweep scores of every ray of every reference view
@@ -43,8 +49,8 @@ def resolve_device(device):
 class ForwardPass:
     """Shared plumbing: feature caching, ray enumeration, ray batches.
 
-    The arguments are the JAX package's, plus ``device``; the raynet pass
-    samples along bbox segments and reads neither ``sampling_scheme`` nor
+    The arguments are the JAX package's, plus ``device``; the ported passes
+    sample along bbox segments and read neither ``sampling_scheme`` nor
     ``image_shape`` (the scene gives the shape).
     """
 
@@ -152,6 +158,73 @@ class ForwardPass:
         raise NotImplementedError()
 
 
+def _check_images_range(images_range):
+    if not isinstance(images_range, tuple) or len(images_range) != 3:
+        raise TypeError("images_range must be a (start, end, skip) tuple")
+    return images_range
+
+
+class _PerViewDepthPass(ForwardPass):
+    """A pass whose depth of a ray depends only on its own view set: one
+    step per ray batch, a ``(W, H).T`` depth map per reference view."""
+
+    def _depth_step(self, chunk, features, P, P_pinv, center, bbox, H, W):
+        """(N,) float32 depths of the rays of ``chunk``."""
+        raise NotImplementedError()
+
+    def forward_pass(self, scene, images_range):
+        """Yield one (H, W) float32 depth map per reference image of
+        ``images_range`` = (start, end, skip)."""
+        start, end, skip = _check_images_range(images_range)
+        self._check_scene(scene)
+        H, W = scene.image_shape
+        bbox = torch.as_tensor(
+            np.asarray(scene.bbox, np.float32).reshape(-1), device=self.device
+        )
+        for ref_idx in range(start, end, skip):
+            ray_idxs = self.get_valid_rays_per_image(scene, ref_idx)
+            features, P, P_pinv, center = self._features_and_cameras(
+                scene, ref_idx
+            )
+            depth = torch.zeros(len(ray_idxs), dtype=torch.float32,
+                                device=self.device)
+            with self.timer.phase("Per-pixel depth estimation"):
+                for off, n_valid, chunk in self._ray_batches(ray_idxs):
+                    d = self._depth_step(chunk, features, P, P_pinv, center,
+                                         bbox, H, W)
+                    depth[off:off + n_valid] = d[:n_valid]
+                depth = depth.cpu().numpy()
+            depth_map = np.zeros(H * W, dtype=np.float32)
+            depth_map[ray_idxs] = depth
+            yield depth_map.reshape(W, H).T
+
+
+class MultiViewCNNForwardPass(_PerViewDepthPass):
+    """Plane-sweep scoring + argmax depth (factory name: multi_view_cnn)."""
+
+    def _depth_step(self, chunk, features, P, P_pinv, center, bbox, H, W):
+        gp = self._generation_params
+        _, depth = fused.mvcnn_depth_step(
+            chunk, features, P, P_pinv, center, bbox, H, W, gp.padding,
+            gp.depth_planes,
+        )
+        return depth
+
+
+class MultiViewCNNVoxelSpaceForwardPass(_PerViewDepthPass):
+    """Plane sweep + voxel traversal + depth->voxel argmax
+    (factory name: multi_view_cnn_voxel_space)."""
+
+    def _depth_step(self, chunk, features, P, P_pinv, center, bbox, H, W):
+        gp = self._generation_params
+        *_, depth = fused.mvcnn_voxel_depth_step(
+            chunk, features, P, P_pinv, center, bbox, H, W, gp.padding,
+            gp.depth_planes, tuple(int(g) for g in gp.grid_shape),
+            int(gp.max_number_of_marched_voxels),
+        )
+        return depth
+
+
 class RayNetForwardPass(ForwardPass):
     """Full pipeline with MRF BP over all views (factory name: raynet)."""
 
@@ -164,10 +237,8 @@ class RayNetForwardPass(ForwardPass):
     def forward_pass(self, scene, images_range):
         """Yield one (H, W) float32 depth map per reference image of
         ``images_range`` = (start, end, skip)."""
-        if not isinstance(images_range, tuple) or len(images_range) != 3:
-            raise TypeError("images_range must be a (start, end, skip) tuple")
+        start, end, skip = _check_images_range(images_range)
         self._check_scene(scene)
-        start, end, skip = images_range
         H, W = scene.image_shape
         gp = self._generation_params
         gamma = gp.gamma_mrf if gp.gamma_mrf is not None else 0.05
@@ -246,11 +317,16 @@ class RayNetForwardPass(ForwardPass):
             yield depth_map.reshape(W, H).T
 
 
-_FACTORIES = {"raynet": RayNetForwardPass}
+_FACTORIES = {
+    "multi_view_cnn": MultiViewCNNForwardPass,
+    "multi_view_cnn_voxel_space": MultiViewCNNVoxelSpaceForwardPass,
+    "raynet": RayNetForwardPass,
+}
 
 
 def get_forward_pass_factory(name):
-    """The forward-pass class for ``name``; only ``raynet`` is ported."""
+    """The forward-pass class for ``name``; ``hartmann_fp`` is not ported
+    yet and raises."""
     if name not in _FACTORIES:
         raise NotImplementedError(
             "forward pass factory %r is not ported to raynet_tpu_torch yet "

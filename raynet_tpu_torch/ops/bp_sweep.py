@@ -22,7 +22,7 @@ from .planes_voxels import planes_to_voxels_mapping
 from .ray_marching import (
     unflatten_voxel_indices,
     voxel_centers,
-    voxel_traversal_flat,
+    voxel_traversal_flat_reference,
 )
 
 MODES = {"first": 0, "message": 1, "depth": 2}
@@ -42,7 +42,7 @@ def bp_sweep_reference(
     grid_shape = tuple(int(g) for g in grid_shape)
     grid_size = grid_shape[0] * grid_shape[1] * grid_shape[2]
     depth_planes = S_planes.shape[1]
-    flat_idx, counts = voxel_traversal_flat(
+    flat_idx, counts = voxel_traversal_flat_reference(
         bbox, ray_start, ray_end, grid_shape, max_voxels
     )
     counts = torch.where(valid != 0, counts, torch.zeros_like(counts))
@@ -76,17 +76,7 @@ def bp_sweep_reference(
 
 
 def _check_cuda(name, t, dtype, shape=None):
-    if t.device.type != "cuda":
-        raise ValueError("bp_sweep: %s must be a CUDA tensor" % name)
-    if t.dtype != dtype:
-        raise ValueError("bp_sweep: %s must be %s, got %s" % (name, dtype, t.dtype))
-    if not t.is_contiguous():
-        raise ValueError("bp_sweep: %s must be contiguous" % name)
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            "bp_sweep: %s must have shape %s, got %s"
-            % (name, tuple(shape), tuple(t.shape))
-        )
+    cuda_build.check_tensor("bp_sweep", name, t, dtype, shape)
 
 
 def _bp_sweep_cuda(

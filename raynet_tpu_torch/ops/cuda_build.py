@@ -4,8 +4,9 @@ The kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface and loaded with ``ctypes``. Nothing here runs at
 import: the first kernel launch builds the library into
 ``csrc/build/<hash>/`` (the hash covers the sources and the flags, so an
-edited source rebuilds) and prints how long the build took. A failed build
-raises; there is no fallback.
+edited source rebuilds) and prints how long the build took. Each ``.cu``
+file is compiled by its own ``nvcc``, all started together, and the objects
+are then linked. A failed build raises; there is no fallback.
 """
 import ctypes
 import functools
@@ -30,7 +31,7 @@ BUILD_ROOT = CSRC / "build"
 # division, expf/logf/log1pf and denormals as PyTorch computes them.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-lineinfo",
 )
 
@@ -47,6 +48,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
+    "raynet_voxel_traversal": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -69,11 +71,33 @@ def nvcc_path():
     return str(Path(home) / "bin" / "nvcc")
 
 
-def build_command(output, nvcc=None):
-    """The nvcc command line that builds the kernel library at ``output``."""
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    return [nvcc or nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-            str(output), *cu]
+def build_commands(output, nvcc=None):
+    """The nvcc command lines that build the kernel library at ``output``:
+    one compile per ``.cu`` file (objects beside ``output``), which may
+    run together, then the link."""
+    nvcc = nvcc or nvcc_path()
+    output = Path(output)
+    compiles, objects = [], []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj = output.with_name("%s.%s.o" % (output.stem, cu.stem))
+        compiles.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                         str(obj), str(cu)])
+        objects.append(str(obj))
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(output), *objects]
+    return compiles, link
+
+
+def _run_all(cmds):
+    """Run the commands together; raise with the output of the first that
+    failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed (%d):\n%s\n%s\n%s"
+                               % (p.returncode, " ".join(cmd), out, err))
 
 
 def source_hash():
@@ -98,19 +122,14 @@ def library():
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        # build into a temporary name and rename: concurrent builds
+        # build under a temporary name and rename: concurrent builds
         # never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = build_command(tmp)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                "nvcc failed (%d):\n%s\n%s\n%s"
-                % (proc.returncode, " ".join(cmd), proc.stdout, proc.stderr)
-            )
-        os.replace(tmp, lib_path)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            tmp_lib = Path(tmp) / lib_path.name
+            compiles, link = build_commands(tmp_lib)
+            _run_all(compiles)
+            _run_all([link])
+            os.replace(tmp_lib, lib_path)
         build_seconds = time.perf_counter() - t0
         print(
             "raynet_tpu_torch: built %s in %.1f s" % (lib_path, build_seconds),
@@ -122,6 +141,21 @@ def library():
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def check_tensor(op, name, t, dtype, shape=None):
+    """Raise ValueError unless ``t`` is a contiguous CUDA tensor of
+    ``dtype`` (and ``shape``), as kernel ``op`` takes it."""
+    if t.device.type != "cuda":
+        raise ValueError("%s: %s must be a CUDA tensor" % (op, name))
+    if t.dtype != dtype:
+        raise ValueError("%s: %s must be %s, got %s"
+                         % (op, name, dtype, t.dtype))
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError("%s: %s must have shape %s, got %s"
+                         % (op, name, tuple(shape), tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s: %s must be contiguous" % (op, name))
 
 
 def check(err, name):

@@ -1,22 +1,96 @@
-"""RayNet's per-ray-batch steps and their per-image loops.
+"""The forward passes' per-ray-batch steps and their per-image loops.
 
-Port of ``raynet_tpu/ops/fused.py``: ``raynet_message_step`` (:228-329),
-``raynet_depth_step`` (:713-791) and, as plain Python loops over ray
-batches, ``raynet_image_update`` / ``raynet_image_depth`` (:491, :626).
-The steps compute segments in torch and hand the heavy work to the two
-kernels' wrappers (``plane_sweep_scores``, ``bp_sweep``), which run the
-CUDA kernels for CUDA tensors and the plain versions for CPU tensors.
+Port of ``raynet_tpu/ops/fused.py``: ``mvcnn_depth_step`` (:93-138),
+``mvcnn_voxel_depth_step`` (:155-209), ``raynet_message_step``
+(:228-329), ``raynet_depth_step`` (:713-791) and, as plain Python loops
+over ray batches, ``raynet_image_update`` / ``raynet_image_depth`` (:491,
+:626). The steps compute segments in torch and hand the heavy work to the
+kernels' wrappers (``plane_sweep_scores``, ``voxel_traversal_flat``,
+``bp_sweep``), which run the CUDA kernels for CUDA tensors and the plain
+versions for CPU tensors. The JAX steps' band, tile-order and
+``use_pallas`` arguments exist for Mosaic and have no counterpart: the
+kernels gather directly.
 """
 import torch
 
 from .bp_sweep import bp_sweep
+from .planes_voxels import planes_to_voxels_mapping
 from .planesweep import plane_sweep_scores
-from .sampling import segments_in_bbox
+from .ray_marching import (
+    unflatten_voxel_indices,
+    voxel_centers,
+    voxel_traversal_flat,
+)
+from .sampling import sample_points_along_segments, segments_in_bbox
 
 
 def _grid_size(grid_shape):
     g = [int(x) for x in grid_shape]
     return g[0] * g[1] * g[2]
+
+
+def _distance_to(points, camera_center):
+    """(N,) Euclidean distance of (N, 3) points from the camera centre."""
+    d = points - camera_center[None]
+    return torch.sqrt(
+        d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    )
+
+
+def mvcnn_depth_step(
+    ray_idxs, features, P, P_pinv, camera_center, bbox, height, width,
+    padding, depth_planes,
+):
+    """Plane-sweep scoring + per-ray argmax depth.
+
+    Returns (S (N, D) softmax scores, depth (N,) = ||argmax point - C||);
+    ties break to the first maximum.
+    """
+    ray_start, ray_end = segments_in_bbox(
+        ray_idxs, P_pinv, camera_center, bbox, height
+    )
+    S = plane_sweep_scores(
+        features, P, ray_start, ray_end, padding, height, width, depth_planes,
+    )
+    best = torch.argmax(S, dim=-1)  # first maximum
+    points = sample_points_along_segments(ray_start, ray_end, depth_planes)
+    rows = torch.arange(best.shape[0], device=best.device)
+    return S, _distance_to(points[rows, best], camera_center)
+
+
+def mvcnn_voxel_depth_step(
+    ray_idxs, features, P, P_pinv, camera_center, bbox, height, width,
+    padding, depth_planes, grid_shape, max_voxels,
+):
+    """Plane sweep -> voxel traversal -> depth->voxel mapping -> argmax.
+
+    Returns (S_vox (N, M), voxel_indices (N, M, 3) int32, counts (N,) int32,
+    depth (N,)): the distance from the camera centre to the centre of each
+    ray's arg-max voxel (first maximum), 0 for rays that visit no voxel.
+    """
+    ray_start, ray_end = segments_in_bbox(
+        ray_idxs, P_pinv, camera_center, bbox, height
+    )
+    S_planes = plane_sweep_scores(
+        features, P, ray_start, ray_end, padding, height, width, depth_planes,
+    )
+    flat_idx, counts = voxel_traversal_flat(
+        bbox, ray_start, ray_end, grid_shape, max_voxels
+    )
+    vox = unflatten_voxel_indices(flat_idx, grid_shape)
+    S_vox = planes_to_voxels_mapping(
+        S_planes, vox, counts, ray_start, ray_end, bbox, grid_shape,
+        depth_planes,
+    )
+    best = torch.argmax(S_vox, dim=-1)  # first maximum
+    rows = torch.arange(best.shape[0], device=best.device)
+    # only the arg-max voxels' centres: the (N, M, 3) centres of the JAX
+    # step hold the same values
+    depth = _distance_to(
+        voxel_centers(vox[rows, best], bbox, grid_shape), camera_center
+    )
+    depth = torch.where(counts > 0, depth, torch.zeros_like(depth))
+    return S_vox, vox, counts, depth
 
 
 def raynet_message_step(

@@ -11,7 +11,6 @@ The quadratic and kde variants are not ported yet.
 import torch
 
 from .ray_marching import voxel_centers
-from .sampling import true_divisor
 
 _EPS_T = 1e-4
 
@@ -42,18 +41,25 @@ def depth_planes_to_voxels(S_planes, t, counts, depth_planes):
 
     S_planes: (N, D); t: (N, M); counts: (N,). Returns (N, M) masked to each
     ray's count and renormalised to sum 1 over the valid entries.
+
+    The hat sum is evaluated as what it equals in exact arithmetic, the
+    interpolation between the two planes that bracket t: with x = t (D-1),
+    lo = floor(x) and f = x - lo, s = S_lo + (S_lo+1 - S_lo) f. Where two
+    adjacent planes score the same (their points project to the same
+    feature cells, common at low resolution), every voxel between them
+    then gets exactly that score, so the argmax takes the first of them
+    whatever the rounding of the scores; the hat sum's rounding picks any
+    of them. K2 (``csrc/bp_sweep.cu``) evaluates the same form.
     """
     D = depth_planes
     m = t.shape[1]
-    scale = float(D - 1)
-    t_d = torch.arange(D, dtype=torch.float32, device=t.device) / true_divisor(
-        D - 1, t.device
-    )
-
-    s_new = torch.zeros_like(t)
-    for d in range(D):
-        w = (1.0 - (t - t_d[d]).abs() * scale).clamp_min(0.0)
-        s_new = s_new + S_planes[:, d][:, None] * w
+    x = t * float(D - 1)
+    lo = torch.nan_to_num(x.floor(), nan=0.0).clamp(0, D - 2)
+    f = x - lo
+    lo = lo.to(torch.int64)
+    s_lo = torch.gather(S_planes, 1, lo)
+    s_hi = torch.gather(S_planes, 1, lo + 1)
+    s_new = s_lo + (s_hi - s_lo) * f
 
     mask = torch.arange(m, device=t.device)[None, :] < counts[:, None]
     zero = torch.zeros_like(s_new)

@@ -1,9 +1,11 @@
-"""Amanatides-Woo voxel traversal on torch tensors (the plain march).
+"""Amanatides-Woo voxel traversal: K3 and its plain version.
 
-Port of ``raynet_tpu/ops/ray_marching.py:29-172``: a loop over the static
-step budget M whose body is elementwise over all N rays, with the early exit
-as an ``alive`` mask. The same semantics are the ``__device__`` march of the
-CUDA kernels (``csrc/march.cuh``):
+Port of ``raynet_tpu/ops/ray_marching.py:29-172``. ``voxel_traversal`` is
+the plain march: a loop over the static step budget M whose body is
+elementwise over all N rays, with the early exit as an ``alive`` mask. The
+same semantics are the ``__device__`` march of the CUDA kernels
+(``csrc/march.cuh``), which K3 (``csrc/traversal.cu``, behind
+``voxel_traversal_flat``) and K2 run:
 
 - eps = 1e-2 boundary nudging of both endpoints;
 - the first voxel is emitted iff it is inside the grid;
@@ -14,8 +16,11 @@ CUDA kernels (``csrc/march.cuh``):
 """
 import torch
 
+from . import cuda_build
+
 _EPS = 1e-2
 _FLT_MAX = 3.4028234663852886e38
+_INT32_MAX = 2 ** 31 - 1
 
 
 def voxel_traversal(bbox, ray_start, ray_end, grid_shape, max_voxels):
@@ -121,12 +126,70 @@ def unflatten_voxel_indices(flat_idx, grid_shape):
     )
 
 
-def voxel_traversal_flat(bbox, ray_start, ray_end, grid_shape, max_voxels):
-    """Traversal returning (N, M) FLAT indices + counts."""
+def voxel_traversal_flat_reference(bbox, ray_start, ray_end, grid_shape,
+                                   max_voxels):
+    """Plain traversal returning (N, M) FLAT indices + counts."""
     vox, counts = voxel_traversal(
         bbox, ray_start, ray_end, grid_shape, max_voxels
     )
     return flatten_voxel_indices(vox, grid_shape), counts
+
+
+def _voxel_traversal_cuda(bbox, ray_start, ray_end, grid_shape, max_voxels):
+    n = ray_start.shape[0]
+    gx, gy, gz = (int(g) for g in grid_shape)
+    M = int(max_voxels)
+    for name, t, shape in (("bbox", bbox, (6,)),
+                           ("ray_start", ray_start, (n, 3)),
+                           ("ray_end", ray_end, (n, 3))):
+        cuda_build.check_tensor("voxel_traversal_flat", name, t,
+                                torch.float32, shape)
+    if len({bbox.device, ray_start.device, ray_end.device}) != 1:
+        raise ValueError("voxel_traversal_flat: all tensors must be on one "
+                         "device")
+    device = ray_start.device
+    idx = torch.empty((n, M), dtype=torch.int32, device=device)
+    counts = torch.empty(n, dtype=torch.int32, device=device)
+    lib = cuda_build.library()
+    with torch.cuda.device(device):
+        err = lib.raynet_voxel_traversal(
+            bbox.data_ptr(), ray_start.data_ptr(), ray_end.data_ptr(),
+            idx.data_ptr(), counts.data_ptr(), n, M, gx, gy, gz,
+            cuda_build.stream_ptr(device),
+        )
+    cuda_build.check(err, "raynet_voxel_traversal")
+    voxel_traversal_flat.launches += 1
+    return idx, counts
+
+
+def voxel_traversal_flat(bbox, ray_start, ray_end, grid_shape, max_voxels):
+    """Traversal returning (N, M) FLAT int32 indices (zero past each ray's
+    count) + (N,) int32 counts: the CUDA kernel K3 for CUDA tensors, the
+    plain version for CPU tensors.
+
+    bbox: (6,) float32; ray_start, ray_end: (N, 3) float32, on the card all
+    three contiguous. The grid's voxel count must fit the int32 flat index.
+    """
+    gx, gy, gz = (int(g) for g in grid_shape)
+    if min(gx, gy, gz) < 1 or int(max_voxels) < 1:
+        raise ValueError("voxel_traversal_flat: grid %s and max_voxels %d "
+                         "must be positive" % ((gx, gy, gz), max_voxels))
+    if gx * gy * gz > _INT32_MAX:
+        raise ValueError(
+            "voxel_traversal_flat: grid %s has %d voxels; the flat int32 "
+            "index takes at most 2**31 - 1" % ((gx, gy, gz), gx * gy * gz)
+        )
+    args = (bbox, ray_start, ray_end, grid_shape, max_voxels)
+    if ray_start.device.type == "cuda":
+        return _voxel_traversal_cuda(*args)
+    if ray_start.device.type == "cpu":
+        return voxel_traversal_flat_reference(*args)
+    raise ValueError("voxel_traversal_flat: unsupported device %s"
+                     % ray_start.device)
+
+
+# Kernel launches since the last reset (the plain path never counts).
+voxel_traversal_flat.launches = 0
 
 
 def voxel_centers(voxel_indices, bbox, grid_shape):

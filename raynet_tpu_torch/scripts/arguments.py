@@ -3,6 +3,7 @@
 Same flag names, choices and defaults as ``raynet_tpu/scripts/arguments.py``
 (which imports the JAX training code, so the groups are repeated here).
 """
+from ..common.dataset import DTUDataset, RestrepoDataset
 
 
 def add_nn_arguments(parser):
@@ -162,9 +163,6 @@ def add_device_arguments(parser):
 def build_dataset(
     type, dir, illumination_condition, select_neighbors_based_on="filesystem"
 ):
-    # the dataset readers decode images with imageio: import on use
-    from raynet_tpu.common.dataset import DTUDataset, RestrepoDataset
-
     if type.lower() == "dtu":
         return DTUDataset(
             dir,

@@ -3,16 +3,17 @@
 
 The PyTorch twin of ``raynet_tpu/scripts/forward_pass.py``: the same
 positional arguments, flags and ``depth_%03d.npy`` outputs, plus
-``--device`` (default ``cuda``). Only ``--forward_pass_factory raynet`` is
-ported; the other factories raise.
+``--device`` (default ``cuda``). The factories ``raynet``,
+``multi_view_cnn`` and ``multi_view_cnn_voxel_space`` are ported;
+``hartmann_fp`` raises. Scenes are read by the port's own data layer
+(``raynet_tpu_torch/common``), so the CLI runs without the JAX package.
 """
 import argparse
 import os
 
 import numpy as np
 
-from raynet_tpu.common.generation_parameters import GenerationParameters
-
+from ..common.generation_parameters import GenerationParameters
 from ..inference import get_forward_pass_factory
 from ..models.feature_extractor import FeatureExtractor
 from .arguments import (
@@ -86,7 +87,7 @@ def main(argv=None):
     fp = factory(
         model,
         generation_params,
-        None,  # the raynet pass reads no sampling scheme
+        None,  # the ported passes sample along bbox segments
         scene.image_shape,
         args.rays_batch,
         filter_out_rays=args.filter_out,

@@ -11,17 +11,23 @@ Tolerances: K1 feature cells exact and scores rtol=1e-5, atol=1e-6 (the
 kernel sums features in another order); K2 counts exact, messages and
 scatter rtol=1e-4, atol=1e-5 on short rays (M <= 64) with inputs that keep
 the BP recurrence well conditioned (float atomics reorder the grid sums),
-depth within 1e-5 relative on >= 0.999 of the rays.
+depth within 1e-5 relative on >= 0.999 of the rays; K3 indices and counts
+exact.
 """
 import numpy as np
 import pytest
 import torch
 
 from raynet_tpu_torch.common.ring_scene import RingScene
-from raynet_tpu_torch.inference import RayNetForwardPass
+from raynet_tpu_torch.inference import (
+    MultiViewCNNForwardPass,
+    MultiViewCNNVoxelSpaceForwardPass,
+    RayNetForwardPass,
+)
 from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
 from raynet_tpu_torch.ops import bp_sweep as bp
 from raynet_tpu_torch.ops import planesweep as ps
+from raynet_tpu_torch.ops import ray_marching as rm
 from raynet_tpu_torch.ops.mrf import log_prior
 from raynet_tpu_torch.ops.sampling import segments_in_bbox
 
@@ -174,6 +180,108 @@ def test_forward_pass_on_the_card_matches_the_cpu(cuda):
     # the CPU pass reads the same features (computed on the card)
     fp_cpu = RayNetForwardPass(model, gp, None, scene.image_shape, 700,
                                device="cpu")
+    cpu = np.stack(list(fp_cpu.forward_pass(scene, (0, 2, 1))))
+    assert np.array_equal(gpu > 0, cpu > 0)
+    assert np.mean(np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu)) >= 0.999
+
+
+def _traversal_inputs(device, geometry):
+    """(bbox, ray_start, ray_end) of one test geometry, float32 on device."""
+    rng = np.random.RandomState(3)
+    if geometry == "ring":
+        _, _, bbox, rs, re = _rig(device)
+        return bbox, rs, re
+    bbox = np.array([-2.0, -1.0, 0.5, 2.0, 3.0, 4.5], dtype=np.float32)
+    n = 1000  # not a multiple of the kernel's 128-thread block
+    lo, hi = bbox[:3], bbox[3:]
+    if geometry == "misses":
+        rs = np.tile(lo - 10.0, (n, 1))
+        re = rs + 1.0
+    else:  # opposite faces in both directions, exact diagonals first
+        rs = rng.uniform(lo, hi, (n, 3))
+        re = rng.uniform(lo, hi, (n, 3))
+        flip = rng.rand(n) < 0.5
+        rs[:, 2] = np.where(flip, hi[2], lo[2])
+        re[:, 2] = lo[2] + hi[2] - rs[:, 2]
+        rs[:8], re[:8] = lo, hi
+        rs[8:16], re[8:16] = hi, lo
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return f32(bbox), f32(rs), f32(re)
+
+
+@pytest.mark.parametrize("geometry, grid, M", [
+    ("ring", (12, 12, 12), 24), ("ring", (128, 128, 64), 384),
+    ("faces", (7, 11, 6), 40), ("faces", (7, 11, 6), 1),
+    ("misses", (4, 4, 4), 8),
+])
+def test_traversal_kernel_matches_plain(cuda, geometry, grid, M):
+    bbox, rs, re = _traversal_inputs(cuda, geometry)
+    # leave garbage where the caching allocator will put the outputs: the
+    # kernel must write every entry itself
+    junk = torch.full((rs.shape[0], M + 1), -7, dtype=torch.int32,
+                      device=cuda)
+    del junk
+    rm.voxel_traversal_flat.launches = 0
+    idx, counts = rm.voxel_traversal_flat(bbox, rs, re, grid, M)
+    assert rm.voxel_traversal_flat.launches == 1
+    ref_idx, ref_counts = rm.voxel_traversal_flat_reference(
+        bbox, rs, re, grid, M)
+    torch.cuda.synchronize()
+    assert idx.dtype == torch.int32 and idx.shape == (rs.shape[0], M)
+    assert torch.equal(counts, ref_counts)
+    assert torch.equal(idx, ref_idx)
+    if geometry == "misses":
+        assert not counts.any()
+    elif M > 1:
+        assert int(counts.max()) > 1
+
+
+def test_traversal_kernel_counts_equal_bp_sweep_counts(cuda):
+    grid, M = (32, 24, 16), 64
+    rs, re, valid, S, _, _, center, bbox = _bp_inputs(cuda, grid, M)
+    valid.fill_(1)
+    _, counts, _ = bp.bp_sweep(rs, re, valid, S, None, None,
+                               torch.zeros(int(np.prod(grid)), device=cuda),
+                               center, bbox, grid, M, PRIOR, "first")
+    _, k3_counts = rm.voxel_traversal_flat(bbox, rs, re, grid, M)
+    torch.cuda.synchronize()
+    assert torch.equal(k3_counts, counts)
+
+
+def test_traversal_kernel_rejects_what_it_cannot_take(cuda):
+    bbox, rs, re = _traversal_inputs(cuda, "faces")
+    with pytest.raises(ValueError, match="bbox"):
+        rm.voxel_traversal_flat(bbox.cpu(), rs, re, (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="float32"):
+        rm.voxel_traversal_flat(bbox, rs.double(), re, (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        rm.voxel_traversal_flat(bbox, rs.t().contiguous().t(), re,
+                                (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        rm.voxel_traversal_flat(bbox, rs, re, (2048, 1024, 1024), 8)
+
+
+@pytest.mark.parametrize("cls, kernels", [
+    (MultiViewCNNForwardPass, 1), (MultiViewCNNVoxelSpaceForwardPass, 2),
+])
+def test_mvcnn_passes_on_the_card_match_the_cpu(cuda, cls, kernels):
+    scene = RingScene(6, 36, 48, 400.0, angle_step=0.05)
+    gp = type("GP", (), dict(
+        depth_planes=8, neighbors=4, padding=PAD,
+        grid_shape=np.array([12, 12, 12], np.int32),
+        max_number_of_marched_voxels=24, gamma_mrf=0.05,
+    ))()
+    model = FeatureExtractor("simple_cnn", seed=0, device=cuda)
+    ps.plane_sweep_scores.launches = 0
+    rm.voxel_traversal_flat.launches = 0
+    fp = cls(model, gp, None, scene.image_shape, 700, device=cuda)
+    gpu = np.stack(list(fp.forward_pass(scene, (0, 2, 1))))
+    assert ps.plane_sweep_scores.launches == 2 * 3
+    assert rm.voxel_traversal_flat.launches == (2 * 3 if kernels == 2 else 0)
+    fp_cpu = cls(model, gp, None, scene.image_shape, 700, device="cpu")
     cpu = np.stack(list(fp_cpu.forward_pass(scene, (0, 2, 1))))
     assert np.array_equal(gpu > 0, cpu > 0)
     assert np.mean(np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu)) >= 0.999

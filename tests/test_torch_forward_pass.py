@@ -124,13 +124,16 @@ def test_cli_matches_jax_cli(mock_scene_dir, tmp_path):
 
 
 def test_cli_rejects_factories_not_ported(mock_scene_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi_view_cnn"):
+    with pytest.raises(NotImplementedError, match="hartmann_fp"):
         port_cli.main([
             str(mock_scene_dir.parent), str(tmp_path), "--scene_idx", "0",
-            "--forward_pass_factory", "multi_view_cnn", "--device", "cpu",
+            "--forward_pass_factory", "hartmann_fp", "--device", "cpu",
         ] + FLAGS)
     with pytest.raises(NotImplementedError):
         get_forward_pass_factory("hartmann_fp")
+    for name in ("raynet", "multi_view_cnn", "multi_view_cnn_voxel_space"):
+        assert get_forward_pass_factory(name).__module__ == (
+            "raynet_tpu_torch.inference.forward_pass")
 
 
 def test_message_store_over_budget_raises(setup):
@@ -151,36 +154,56 @@ def test_cuda_request_raises_without_card(setup):
                           device="cuda")
 
 
-def test_package_imports_without_jax():
-    """Every module of the port imports with jax, flax and optax blocked
-    (a subprocess: this test process has imported jax already)."""
+def test_package_imports_without_jax(mock_scene_dir, tmp_path):
+    """Every module of the port imports with jax, flax, optax and the JAX
+    package raynet_tpu blocked, and the CLI then reads the mock scene and
+    writes its depth maps (a subprocess: this test process has imported
+    them already)."""
     code = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax", "raynet_tpu"):
     sys.modules[name] = None
 import raynet_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(
     raynet_tpu_torch.__path__, "raynet_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+from raynet_tpu_torch.scripts import forward_pass
+forward_pass.main(sys.argv[1:])
 print(len(mods))
 """
+    argv = [
+        str(mock_scene_dir.parent), str(tmp_path), "--scene_idx", "0",
+        "--forward_pass_factory", "multi_view_cnn_voxel_space",
+        "--start_end", "0,1", "--rays_batch", "700", "--device", "cpu",
+    ] + FLAGS
     out = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
-        text=True, timeout=120,
+        [sys.executable, "-c", code] + argv, cwd=REPO_ROOT,
+        capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+    assert np.load(tmp_path / "depth_000.npy").shape == (H, W)
 
 
 def test_kernel_sources_and_build_command():
     names = {p.name for p in cuda_build.sources()}
-    assert {"planesweep.cu", "bp_sweep.cu", "march.cuh"} <= names
-    cmd = cuda_build.build_command("/x/lib.so", nvcc="nvcc")
-    joined = " ".join(cmd[1:])
-    assert "arch=compute_90a,code=sm_90a" in joined
-    assert "--use_fast_math" not in joined and "-fmad=false" in joined
-    assert all(str(cuda_build.CSRC) in c for c in cmd if c.endswith(".cu"))
+    assert {"planesweep.cu", "bp_sweep.cu", "traversal.cu",
+            "march.cuh"} <= names
+    assert "raynet_voxel_traversal" in cuda_build.SIGNATURES
+    compiles, link = cuda_build.build_commands("/x/lib.so", nvcc="nvcc")
+    # one nvcc per .cu source, then one link of their objects
+    cus = [c[-1] for c in compiles]
+    assert sorted(os.path.basename(c) for c in cus) == sorted(
+        n for n in names if n.endswith(".cu"))
+    assert all(c.startswith(str(cuda_build.CSRC)) for c in cus)
+    objects = [c[c.index("-o") + 1] for c in compiles]
+    assert link[-len(objects):] == objects and "-shared" in link
+    assert all(o.startswith("/x/") for o in objects)
+    for cmd in compiles + [link]:
+        joined = " ".join(cmd[1:])
+        assert "arch=compute_90a,code=sm_90a" in joined
+        assert "--use_fast_math" not in joined and "-fmad=false" in joined
     assert cuda_build.BUILD_ROOT.relative_to(cuda_build.CSRC)
     ignored = open(os.path.join(REPO_ROOT, ".gitignore")).read().split()
     assert "raynet_tpu_torch/csrc/build/" in ignored
