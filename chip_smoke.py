@@ -7,15 +7,18 @@ Builds the port's CUDA kernels from ``raynet_tpu_torch/csrc`` and then, in
 order, every phase failing loudly (nonzero exit):
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
-2. build: seconds the nvcc build took;
-3. K1 (plane sweep) against its plain PyTorch version on the card, on one
-   65,536-ray batch of the rig below (V=5, D=32, F=32, bf16 features):
-   feature cells, scores, and the median time of each;
+2. build: seconds the nvcc build took; then every kernel timed alone by
+   ``time_kernels.time_all`` on one 65,536-ray batch of the rig below
+   (V=5, D=32, F=32, bf16 features; median of 7 one-launch CUDA-event
+   runs, plain versions of 3), with its bound and library time: the one
+   code path that gives every kernel time below;
+3. K1 (plane sweep) against its plain PyTorch version on the card, on the
+   same batch: feature cells and scores;
 4. K2 (fused BP sweep) against its plain version on the card in its three
    modes on the same batch (M=384, grid 128x128x64): counts, messages, the
-   scattered grid, depths, and the times;
+   scattered grid and depths;
 5. K3 (voxel traversal) against its plain version on the same batch:
-   indices and counts identical, counts equal to K2's, and the times;
+   indices and counts identical, counts equal to K2's;
 6. the three forward passes end to end through their user entry point
    (``forward_pass`` of ``RayNetForwardPass``, ``MultiViewCNNForwardPass``
    and ``MultiViewCNNVoxelSpaceForwardPass``) on the paper-resolution ring
@@ -31,36 +34,38 @@ order, every phase failing loudly (nonzero exit):
 7. the CLI (``raynet_tpu_torch.scripts.forward_pass.main``) with the
    ``multi_view_cnn_voxel_space`` factory on the card, on the 400x300 rig
    written to a temporary directory in Restrepo format; its depth maps must
-   equal the pass's on the same rig, and no module of JAX or of the JAX
-   package may have been imported.
+   equal the pass's on the same rig;
+8. the probes P1 (TMA box copy) and P2 (f32 product on the tensor cores)
+   through their entry point (``raynet_tpu_torch.tools.probe_dma_align``),
+   their launch counts set to 0 just before and read just after; then P1
+   in all eight cases ``torch.equal`` to its plain version; P2's "rna"
+   diagonal equal to the TF32 round-to-nearest emulation bit for bit and
+   its "raw" diagonal matching a named rounding, then both modes on seeded
+   random (128, 128) inputs within 2**-9 * (|x| @ |e|) of the float64
+   product and within 2**-16 * (|x| @ |e|) of the plain version of the
+   rounding their diagonal named;
+9. one more ``raynet`` pass at 1600x1200 under ``utils.profiling.trace``
+   (``torch.profiler``): the device's busy and idle share over the pass
+   and the five device operations with the most time. No module of JAX or
+   of the JAX package may have been imported.
 
-The last lines are a JSON summary of the passes, the kernels' JSON line
-(times, bounds, launches), and the card's name and power limit before the
-final JSON line ``{"ok": true, "device": ...}``. Without a CUDA device, or
+The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
+(``time_kernels.kernel_rig``, ``time_kernels.time_all``, ``roofline``).
+The last lines are a JSON summary of the passes, the probes and the trace,
+the kernels' JSON line (times, bounds, launches), and the card's name and
+power limit before the final JSON line ``{"ok": true, "device": ...}``.
+Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
 result.
 """
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
-import types
 
 import numpy as np
-
-N_RAYS = 65536
-GRID = (128, 128, 64)
-M = 384
-D = 32
-GAMMA = 0.05
-PADDING = 11
-# NVIDIA H100 SXM data sheet at 700 W: HBM3 bytes/s, dense float32 FLOP/s
-# outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 
 
 def log(*args):
@@ -72,42 +77,9 @@ def run(cmd):
                           timeout=120).stdout.strip()
 
 
-def cuda_ms(torch, fn, reps=7, warmup=2):
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def generation_params():
-    return types.SimpleNamespace(
-        depth_planes=D, neighbors=4, padding=PADDING,
-        grid_shape=np.array(GRID, dtype=np.int32),
-        max_number_of_marched_voxels=M, gamma_mrf=GAMMA,
-    )
-
-
 def rel_agreement(a, b, rtol):
     """Share of entries with |a - b| <= rtol * |b|."""
     return float(np.mean(np.abs(a - b) <= rtol * np.abs(b)))
-
-
-def bound(nbytes, flops):
-    """(bound_ms, bound_by): the least time the card could take to move
-    ``nbytes`` and compute ``flops`` float32 operations."""
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def write_restrepo_scene(scene, root):
@@ -149,10 +121,7 @@ def main():
         MultiViewCNNVoxelSpaceForwardPass,
         RayNetForwardPass,
     )
-    from raynet_tpu_torch.models.feature_extractor import (
-        FeatureExtractor,
-        zeropad_images,
-    )
+    from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
     from raynet_tpu_torch.ops import cuda_build
     from raynet_tpu_torch.ops.bp_sweep import bp_sweep, bp_sweep_reference
     from raynet_tpu_torch.ops.mrf import log_prior
@@ -165,8 +134,18 @@ def main():
         voxel_traversal_flat,
         voxel_traversal_flat_reference,
     )
-    from raynet_tpu_torch.ops.sampling import segments_in_bbox
     from raynet_tpu_torch.scripts import forward_pass as cli
+    from raynet_tpu_torch.tools import probe_dma_align as probes
+    from raynet_tpu_torch.tools import time_kernels
+    from raynet_tpu_torch.tools.time_kernels import (
+        D,
+        GAMMA,
+        GRID,
+        M,
+        N_RAYS,
+        kernel_rig,
+    )
+    from raynet_tpu_torch.utils import profiling
 
     dev = torch.device("cuda", 0)
     failures = []
@@ -196,29 +175,26 @@ def main():
     ))
 
     # the rig and one view set
-    scene = RingScene(6, 1200, 1600, 2750.0, angle_origin=1, seed=0)
-    H, W = scene.image_shape
-    gp = generation_params()
-    model = FeatureExtractor("simple_cnn", seed=0, output_dtype=torch.bfloat16,
-                             device=dev)
-    view_idxs = scene.get_view_idxs(0, gp.neighbors)
-    images = [scene.get_image(j) for j in view_idxs]
-    features = torch.stack(
-        [model.predict(zeropad_images([im], PADDING))[0] for im in images]
-    )
+    rig = kernel_rig(dev)
+    scene, gp, model, features = rig.scene, rig.gp, rig.model, rig.features
+    center, bbox, rs, re = rig.center, rig.bbox, rig.rs, rig.re
+    H, W, ps_args = rig.H, rig.W, rig.ps_args
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    P = f32(np.stack([im.camera.P for im in images]))
-    P_pinv = f32(images[0].camera.P_pinv)
-    center = f32(images[0].camera.center[:3, 0])
-    bbox = torch.as_tensor(scene.bbox.reshape(-1), device=dev)
-    mid = H * W // 2
-    ray_idxs = torch.arange(mid - N_RAYS // 2, mid + N_RAYS // 2,
-                            dtype=torch.int32, device=dev)
-    rs, re = segments_in_bbox(ray_idxs, P_pinv, center, bbox, H)
-    ps_args = (features, P, rs, re, PADDING, H, W, D)
+    # every kernel alone on the rig, timed and bounded by time_kernels; the
+    # phases below check what each computes
+    log("== kernel times: time_kernels.time_all, median of 7 one-launch "
+        "CUDA-event runs (plain versions: of 3)")
+    rows = time_kernels.time_all(rig, 1, 7, plain=True)
+    for line in time_kernels.format_rows(rows):
+        log("  " + line)
+    times = {r["name"]: r for r in rows}
+
+    def timing(name):
+        return {k: times[name][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
     # 3. K1
     log("== 3. K1 plane sweep vs plain, %d rays, features %s %s"
@@ -231,20 +207,11 @@ def main():
     k1_err = float((S_k - S_p).abs().max())
     check(cell_mism == 0, "feature-cell mismatches %d (expect 0)" % cell_mism)
     check(k1_err <= 1e-5, "max |score diff| %.3e <= 1e-5" % k1_err)
-    k1_ms = cuda_ms(torch, lambda: plane_sweep_scores(*ps_args))
-    k1_plain_ms = cuda_ms(torch, lambda: plane_sweep_scores_reference(*ps_args))
-    # bound: each (view, feature cell) row the batch touches read once, the
-    # endpoints and P read, S written; 3 F + 20 flops per (ray, plane, view)
-    V, Hf, Wf, F = features.shape
-    rows = cells_p[..., 1].long() * Wf + cells_p[..., 0].long()
-    rows = rows + torch.arange(V, device=dev)[None, None, :] * (Hf * Wf)
-    n_rows = int(torch.unique(rows).numel())
-    k1_bytes = (n_rows * F * features.element_size() + 2 * N_RAYS * 3 * 4
-                + V * 12 * 4 + N_RAYS * D * 4)
-    k1_bound_ms, k1_bound_by = bound(k1_bytes, N_RAYS * D * V * (3 * F + 20))
-    log("  K1 %.3f ms, plain %.3f ms (median of 7); bound %.4f ms (%s: %d "
-        "feature rows, %.1f MB)" % (k1_ms, k1_plain_ms, k1_bound_ms,
-                                    k1_bound_by, n_rows, k1_bytes / 1e6))
+    k1 = times["K1"]
+    log("  K1 %.3f ms, plain %.3f ms; bound %.4f ms (%s: %d feature rows, "
+        "%.1f MB)" % (k1["ms"], k1["plain_ms"], k1["bound_ms"],
+                      k1["bound_by"], k1["counts"]["feature_rows"],
+                      k1["nbytes"] / 1e6))
 
     # 4. K2
     # Tolerances: counts exact. First iteration (mu is the constant
@@ -303,21 +270,11 @@ def main():
         check(ok, "%s vs float64: kernel max %.3e mean %.3e, plain max %.3e "
               "mean %.3e" % (label, ek.max(), ek.mean(), ep.max(), ep.mean()))
 
-    def timed(mode, msgs, grid_acc):
-        scratch = torch.zeros(G, device=dev)
-        ms = cuda_ms(torch, lambda: bp_sweep(
-            *bp_args(msgs, grid_acc, scratch, mode)))
-        plain_ms = cuda_ms(torch, lambda: bp_sweep_reference(
-            *bp_args(msgs, grid_acc, scratch, mode)), reps=5, warmup=1)
-        log("  %s: K2 %.3f ms, plain %.3f ms" % (mode, ms, plain_ms))
-        return ms, plain_ms
-
     # first iteration
     (mk, k2_counts, _), gk, (m1, _, _), g1 = sweep_both(None, None, "first")
     err = max(strict("first: messages", mk, m1), strict("first: grid", gk, g1))
     g1 = g1 + prior  # the next iteration's grid
-    ms, plain_ms = timed("first", None, None)
-    k2["first"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    k2["first"] = {"max_abs_err": err, **timing("K2 first")}
 
     # message mode, well conditioned (seeded grid and messages)
     rng = np.random.RandomState(1)
@@ -339,10 +296,9 @@ def main():
         if label == "real grid":
             m2, g2 = mp, gpl + prior
         del mk, mp, m64
-    ms, plain_ms = timed("message", m1, g1)
     k2["message"] = {"max_abs_err": errs["moderate mu"],
                      "real_grid_max_abs_err": errs["real grid"],
-                     "ms": ms, "plain_ms": plain_ms}
+                     **timing("K2 message")}
 
     # depth on the second sweep's output, and on the moderate inputs
     depth_agree = {}
@@ -354,9 +310,8 @@ def main():
         check(depth_agree[label] >= 0.999 and np.array_equal(a > 0, b > 0),
               "depth (%s): %.6f of rays within 1e-3 relative, zero masks "
               "identical" % (label, depth_agree[label]))
-    ms, plain_ms = timed("depth", m2, g2)
     k2["depth"] = {"agreement": depth_agree, "max_abs_err": float(
-        np.abs(a - b).max()), "ms": ms, "plain_ms": plain_ms}
+        np.abs(a - b).max()), **timing("K2 depth")}
 
     # 5. K3
     log("== 5. K3 voxel traversal vs plain, M=%d, grid %s" % (M, GRID))
@@ -372,33 +327,17 @@ def main():
           % (float(cnt_p.float().mean()), int(cnt_p.max())))
     check(bool(torch.equal(cnt_k, k2_counts)),
           "K3 counts equal K2's first-mode counts")
-    k3_ms = cuda_ms(torch, lambda: voxel_traversal_flat(bbox, rs, re, GRID, M))
-    k3_plain_ms = cuda_ms(torch, lambda: voxel_traversal_flat_reference(
-        bbox, rs, re, GRID, M), reps=3, warmup=1)
-    # bounds from this batch's march: visited cells and distinct cells
-    visits = int(cnt_p.sum())
-    visited = torch.arange(M, device=dev)[None, :] < cnt_p[:, None]
-    cells = int(torch.unique(idx_p[visited]).numel())
-    del idx_k, idx_p, visited
-    ends_b = 2 * N_RAYS * 3 * 4
-    k3_bound_ms, k3_bound_by = bound(
-        N_RAYS * M * 4 + N_RAYS * 4 + ends_b + 24, visits * 25)
+    del idx_k, idx_p
+    # the bounds rest on this batch's march: visited and distinct cells
+    k3 = times["K3"]
     log("  K3 %.3f ms, plain %.3f ms; bound %.4f ms (%s); %d visits, %d "
-        "distinct cells" % (k3_ms, k3_plain_ms, k3_bound_ms, k3_bound_by,
-                            visits, cells))
-    # K2 per mode: the endpoints, valid, S and (message, depth) the visited
-    # messages and grid cells read once; messages, counts, depth and the
-    # grid cells (atomics) written once; ~60 flops per visited cell
-    common_b = ends_b + N_RAYS * 4 + N_RAYS * D * 4 + N_RAYS * 4
-    k2_bytes = {
-        "first": common_b + N_RAYS * M * 4 + cells * 4,
-        "message": common_b + visits * 4 + 2 * cells * 4 + N_RAYS * M * 4,
-        "depth": common_b + visits * 4 + cells * 4 + N_RAYS * 4,
-    }
-    for mode, nbytes in k2_bytes.items():
-        k2[mode]["bound_ms"], k2[mode]["bound_by"] = bound(nbytes, visits * 60)
-        log("  K2 %s: bound %.4f ms (%.1f MB), measured %.3f ms"
-            % (mode, k2[mode]["bound_ms"], nbytes / 1e6, k2[mode]["ms"]))
+        "distinct cells" % (k3["ms"], k3["plain_ms"], k3["bound_ms"],
+                            k3["bound_by"], k3["counts"]["visits"],
+                            k3["counts"]["cells"]))
+    for mode in k2:
+        r = times["K2 " + mode]
+        log("  K2 %s: %.3f ms, plain %.3f ms; bound %.4f ms (%.1f MB)"
+            % (mode, r["ms"], r["plain_ms"], r["bound_ms"], r["nbytes"] / 1e6))
     del S_k, S_p, cells_k, cells_p, features, m_mod, m1, m2
 
     # 6. the three passes end to end
@@ -511,6 +450,131 @@ def main():
           and cli_agree >= 0.999,
           "CLI depth maps %s agree with the pass on the same rig: %.6f"
           % (cli_maps.shape, cli_agree))
+    del fp
+
+    # 8. the probes: their entry point, then each kernel against its plain
+    # version on the card
+    log("== 8. probes: P1 TMA box copy, P2 f32 product on the tensor cores")
+    probe_counters = {"tma_box_rows": probes.tma_box_rows,
+                      "tensor_core_dot": probes.tensor_core_dot}
+    for c in probe_counters.values():
+        c.launches = 0
+    probe_rc = probes.main([])
+    probe_launches = {k: c.launches for k, c in probe_counters.items()}
+    check(probe_rc == 0 and all(probe_launches.values()),
+          "probe_dma_align.main exit %d, launches %s"
+          % (probe_rc, probe_launches))
+    src = probes.box_source(dev)
+    p1_err = 0.0
+    for case in probes.CASES:
+        offs = probes.case_offsets(*case)
+        got = probes.tma_box_rows(src, *offs)
+        ref = probes.tma_box_rows_reference(src, *offs)
+        torch.cuda.synchronize()
+        p1_err = max(p1_err, float((got - ref).abs().max()))
+        check(bool(torch.equal(got, ref)),
+              "P1 %s (y0, xg0, sub0) = %s torch.equal to plain" % (case[0], offs))
+    # the last case, D2, is the one timed
+    check(bool(torch.equal(time_kernels.box_rows_library(src, *offs), ref)),
+          "P1's library call computes the same rows")
+    p1 = times["P1"]
+    log("  P1 %.4f ms, plain %.4f ms, library %.4f ms; bound %.7f ms (%s)"
+        % (p1["ms"], p1["plain_ms"], p1["library_ms"], p1["bound_ms"],
+           p1["bound_by"]))
+
+    # P2: first the diagonals, which name the rounding each mode applies;
+    # then non-symmetric random inputs (a transposed fragment shows), held
+    # loosely to the float64 product (TF32 operands are off by < 2**-10
+    # relative each, so each product by < 2**-9) and tightly to the plain
+    # version of the named rounding: rounded operands have 11 significant
+    # bits, their products are exact in f32, and only the f32 sums over
+    # K = 128 round, by far less than 2**-16 * (|x| @ |e|)
+    p2 = {}
+    raw_roundings = {}
+    eye = torch.eye(probes.N_DOT, device=dev)
+    for label, step in probes.DIAGONALS.items():
+        vals = f32(1.0 + np.arange(probes.N_DOT) * step)
+        diag = torch.diagonal(probes.tensor_core_dot(torch.diag(vals), eye,
+                                                     "rna"))
+        emulated = probes.round_operand(vals, "tf32_rna")
+        check(bool(torch.equal(diag, emulated)),
+              "P2 rna diag(%s) equals the tf32-RNA emulation bit for bit"
+              % label)
+        raw = probes.dot_roundings(torch.diagonal(
+            probes.tensor_core_dot(torch.diag(vals), eye, "raw")), vals)
+        p2["raw " + label] = probes.dot_verdict(raw)
+        check(bool(raw), "P2 raw, diag(%s): %s" % (label, p2["raw " + label]))
+        raw_roundings[label] = raw
+    # diag(1 + k 2^-13) tells the roundings apart
+    held = {"raw": (raw_roundings["1 + k 2^-13"] or ["none"])[0],
+            "rna": "tf32_rna"}
+    rng = np.random.RandomState(2)
+    x, e = (f32(rng.randn(probes.N_DOT, probes.N_DOT)) for _ in range(2))
+    exact = x.double() @ e.double()
+    scale = x.double().abs() @ e.double().abs()
+    for mode in probes.MODES:
+        got = probes.tensor_core_dot(x, e, mode)
+        torch.cuda.synchronize()
+        err = (got.double() - exact).abs()
+        errs = {r: float((got - probes.tensor_core_dot_reference(x, e, r))
+                         .abs().max())
+                for r in ("none", *probes.ROUNDINGS)}
+        tight = (got.double() - probes.tensor_core_dot_reference(
+            x, e, held[mode]).double()).abs()
+        check(bool((err <= 2.0 ** -9 * scale).all()),
+              "P2 %s within 2**-9 * (|x| @ |e|) of the float64 product "
+              "(max err %.3e, max err / tol %.3f); max err against each "
+              "operand rounding %s" % (mode, float(err.max()),
+                                       float((err / scale).max() * 2 ** 9),
+                                       errs))
+        check(bool((tight <= 2.0 ** -16 * scale).all()),
+              "P2 %s within 2**-16 * (|x| @ |e|) of the plain %s version "
+              "(max err %.3e, max err / tol %.3f)"
+              % (mode, held[mode], float(tight.max()),
+                 float((tight / scale).max() * 2 ** 16)))
+        p2[mode] = {"held_to": held[mode],
+                    "max_abs_err_held": float(tight.max()),
+                    "max_abs_err_f64": float(err.max()),
+                    "max_abs_err_by_rounding": errs}
+    p2_t = times["P2"]
+    log("  P2 (rna) %.4f ms, plain %.4f ms, library (TF32 matmul) %.4f ms; "
+        "bound %.7f ms (%s)" % (p2_t["ms"], p2_t["plain_ms"],
+                                p2_t["library_ms"], p2_t["bound_ms"],
+                                p2_t["bound_by"]))
+
+    # 9. one raynet pass under the profiler
+    log("== 9. trace of one raynet pass, %dx%d" % (W, H))
+    fp = RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
+                           device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            with torch.profiler.record_function("raynet pass"):
+                maps = np.stack(list(fp.forward_pass(scene, (0, 2, 1))))
+        traced_wall = time.perf_counter() - t0
+        trace_path = os.path.join(tmp, profiling.TRACE_NAME)
+        trace_mb = os.path.getsize(trace_path) / 1e6
+        events = profiling.read_trace(trace_path)
+    intervals = profiling.device_intervals(events)
+    check(len(intervals) > 0, "the trace holds %d device operations (%.1f MB)"
+          % (len(intervals), trace_mb))
+    window = profiling.annotation_window(events, "raynet pass")
+    busy = profiling.device_busy_share([iv[1:] for iv in intervals], window)
+    by_name = {}
+    for name, t_start, t_end in intervals:
+        by_name[name] = by_name.get(name, 0.0) + (t_end - t_start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log("  pass window %.3f s (wall with the profiler %.3f s): device busy "
+        "%.4f, idle %.4f" % ((window[1] - window[0]) / 1e6, traced_wall,
+                             busy, 1 - busy))
+    for name, us in top:
+        log("  %10.3f ms  %s" % (us / 1e3, name[:100]))
+    check(maps.shape == (2, H, W) and bool(np.isfinite(maps).all()),
+          "traced pass: depth maps %s, finite" % (maps.shape,))
+    traced = {"window_s": (window[1] - window[0]) / 1e6, "busy_share": busy,
+              "idle_share": 1 - busy, "device_ops": len(intervals),
+              "top5_ms": {name: us / 1e3 for name, us in top}}
+    del fp, maps, events
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "raynet_tpu"))
@@ -520,33 +584,38 @@ def main():
               file=sys.stderr)
         return 1
 
+    def kernel(name, source, replaces, launches, err, row):
+        return {"name": name, "route": "cuda",
+                "source": "raynet_tpu_torch/csrc/" + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
     kernels = [
-        {"name": "plane_sweep_scores", "route": "cuda",
-         "source": "raynet_tpu_torch/csrc/planesweep.cu",
-         "replaces": "raynet_tpu/ops/pallas/planesweep.py:84",
-         "launches": total_launches["plane_sweep_scores"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound_ms, "bound_by": k1_bound_by,
-         "library_ms": None},
-        {"name": "bp_sweep", "route": "cuda",
-         "source": "raynet_tpu_torch/csrc/bp_sweep.cu",
-         "replaces": "raynet_tpu/ops/pallas/bp_beam.py:1062",
-         "launches": total_launches["bp_sweep"],
-         # first iteration and moderate-mu message mode; per mode above
-         "max_abs_err": max(k2["first"]["max_abs_err"],
-                            k2["message"]["max_abs_err"]),
-         "ms": k2["message"]["ms"], "plain_ms": k2["message"]["plain_ms"],
-         "bound_ms": k2["message"]["bound_ms"],
-         "bound_by": k2["message"]["bound_by"], "library_ms": None},
-        {"name": "voxel_traversal_flat", "route": "cuda",
-         "source": "raynet_tpu_torch/csrc/traversal.cu",
-         "replaces": "raynet_tpu/ops/pallas/traversal.py:28",
-         "launches": total_launches["voxel_traversal_flat"],
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
-         "library_ms": None},
+        kernel("plane_sweep_scores", "planesweep.cu",
+               "raynet_tpu/ops/pallas/planesweep.py:84",
+               total_launches["plane_sweep_scores"], k1_err, times["K1"]),
+        # first iteration and moderate-mu message mode; per mode above
+        kernel("bp_sweep", "bp_sweep.cu",
+               "raynet_tpu/ops/pallas/bp_beam.py:1062",
+               total_launches["bp_sweep"],
+               max(k2["first"]["max_abs_err"], k2["message"]["max_abs_err"]),
+               times["K2 message"]),
+        kernel("voxel_traversal_flat", "traversal.cu",
+               "raynet_tpu/ops/pallas/traversal.py:28",
+               total_launches["voxel_traversal_flat"], k3_err, times["K3"]),
+        kernel("tma_box_rows", "probe_tma_box.cu",
+               "tools/probe_dma_align.py:33",
+               probe_launches["tma_box_rows"], p1_err, times["P1"]),
+        # the timed mode, rna, against its plain version
+        kernel("tensor_core_dot", "probe_tf32_dot.cu",
+               "tools/probe_dma_align.py:104",
+               probe_launches["tensor_core_dot"],
+               p2["rna"]["max_abs_err_held"], times["P2"]),
     ]
-    print(json.dumps({"bp_sweep_modes": k2, "passes": results}))
+    print(json.dumps({"bp_sweep_modes": k2, "passes": results,
+                      "probes": p2, "trace": traced}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

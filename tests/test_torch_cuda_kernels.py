@@ -12,7 +12,10 @@ kernel sums features in another order); K2 counts exact, messages and
 scatter rtol=1e-4, atol=1e-5 on short rays (M <= 64) with inputs that keep
 the BP recurrence well conditioned (float atomics reorder the grid sums),
 depth within 1e-5 relative on >= 0.999 of the rays; K3 indices and counts
-exact.
+exact; P1 equal to its plain version bit for bit; P2 within
+2**-9 * (|x| @ |e|) of the float64 product (TF32 operands) and within
+2**-16 * (|x| @ |e|) of the float64 product of its rounded operands ("rna":
+only the f32 sums differ), its "rna" diagonal exact.
 """
 import numpy as np
 import pytest
@@ -30,6 +33,8 @@ from raynet_tpu_torch.ops import planesweep as ps
 from raynet_tpu_torch.ops import ray_marching as rm
 from raynet_tpu_torch.ops.mrf import log_prior
 from raynet_tpu_torch.ops.sampling import segments_in_bbox
+from raynet_tpu_torch.tools import probe_dma_align as probes
+from raynet_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -285,3 +290,63 @@ def test_mvcnn_passes_on_the_card_match_the_cpu(cuda, cls, kernels):
     cpu = np.stack(list(fp_cpu.forward_pass(scene, (0, 2, 1))))
     assert np.array_equal(gpu > 0, cpu > 0)
     assert np.mean(np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu)) >= 0.999
+
+
+@pytest.mark.parametrize("case", probes.CASES, ids=lambda c: "%s-%d-%d-%d" % c)
+def test_tma_box_kernel_matches_plain(cuda, case):
+    src = probes.box_source(cuda)
+    offs = probes.case_offsets(*case)
+    probes.tma_box_rows.launches = 0
+    got = probes.tma_box_rows(src, *offs)
+    assert probes.tma_box_rows.launches == 1
+    assert torch.equal(got, probes.tma_box_rows_reference(src, *offs))
+
+
+def test_tma_box_kernel_reads_the_sources_own_shape(cuda):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    src = torch.randn((57, 100, 128), generator=g).to(cuda, torch.bfloat16)
+    for offs in ((100 - probes.BH, 57 - probes.BWG, 8), (13, 31, 5)):
+        got = probes.tma_box_rows(src, *offs)
+        assert torch.equal(got, probes.tma_box_rows_reference(src, *offs))
+
+
+@pytest.mark.parametrize("mode", ["raw", "rna"])
+@pytest.mark.parametrize("m, k, n", [(128, 128, 128), (48, 40, 24)])
+def test_tensor_core_dot_kernel_matches_plain(cuda, mode, m, k, n):
+    # the diagonal names the operand rounding; the random, non-symmetric
+    # product is then held to its plain version (rounded operands' products
+    # are exact in f32, only the sums round) and loosely to float64
+    vals = torch.as_tensor((1 + np.arange(128) * 2.0 ** -13)
+                           .astype(np.float32), device=cuda)
+    diag = torch.diagonal(probes.tensor_core_dot(
+        torch.diag(vals), torch.eye(128, device=cuda), mode))
+    roundings = probes.dot_roundings(diag, vals)
+    if mode == "rna":
+        assert torch.equal(diag, probes.round_operand(vals, "tf32_rna"))
+    assert roundings
+    rng = np.random.RandomState(m + n)
+    x = torch.as_tensor(rng.randn(m, k).astype(np.float32), device=cuda)
+    e = torch.as_tensor(rng.randn(k, n).astype(np.float32), device=cuda)
+    probes.tensor_core_dot.launches = 0
+    got = probes.tensor_core_dot(x, e, mode)
+    assert probes.tensor_core_dot.launches == 1
+    scale = x.double().abs() @ e.double().abs()
+    err = (got.double() - x.double() @ e.double()).abs()
+    assert bool((err <= 2.0 ** -9 * scale).all())
+    ref = probes.tensor_core_dot_reference(x, e, roundings[0]).double()
+    assert bool(((got.double() - ref).abs() <= 2.0 ** -16 * scale).all())
+
+
+def test_trace_holds_device_work(cuda, tmp_path):
+    x = torch.randn((512, 512), device=cuda)
+    with profiling.trace(str(tmp_path)):
+        with torch.profiler.record_function("window"):
+            for _ in range(4):
+                x = x @ x / 512
+            torch.cuda.synchronize()
+    events = profiling.read_trace(str(tmp_path / profiling.TRACE_NAME))
+    intervals = [iv[1:] for iv in profiling.device_intervals(events)]
+    assert len(intervals) >= 4
+    share = profiling.device_busy_share(
+        intervals, profiling.annotation_window(events, "window"))
+    assert 0.0 < share <= 1.0

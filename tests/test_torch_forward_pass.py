@@ -189,8 +189,9 @@ print(len(mods))
 def test_kernel_sources_and_build_command():
     names = {p.name for p in cuda_build.sources()}
     assert {"planesweep.cu", "bp_sweep.cu", "traversal.cu",
-            "march.cuh"} <= names
-    assert "raynet_voxel_traversal" in cuda_build.SIGNATURES
+            "march.cuh", "probe_tma_box.cu", "probe_tf32_dot.cu"} <= names
+    assert {"raynet_voxel_traversal", "raynet_probe_tma_box",
+            "raynet_probe_tf32_dot"} <= set(cuda_build.SIGNATURES)
     compiles, link = cuda_build.build_commands("/x/lib.so", nvcc="nvcc")
     # one nvcc per .cu source, then one link of their objects
     cus = [c[-1] for c in compiles]
