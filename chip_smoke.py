@@ -10,13 +10,19 @@ order, every phase failing loudly (nonzero exit):
 2. build: seconds the nvcc build took; then every kernel timed alone by
    ``time_kernels.time_all`` on one 65,536-ray batch of the rig below
    (V=5, D=32, F=32, bf16 features; median of 7 one-launch CUDA-event
-   runs, plain versions of 3), with its bound and library time: the one
+   runs, plain versions of 3), and K1 and K2 on one whole image (the
+   1,920,000 rays of view 0), with its bound and library time: the one
    code path that gives every kernel time below;
 3. K1 (plane sweep) against its plain PyTorch version on the card, on the
-   same batch: feature cells and scores;
+   same batch and then on all rays of view 0 in one launch, as the raynet
+   pass launches it (the plain version in 65,536-ray spans): feature cells
+   and scores;
 4. K2 (fused BP sweep) against its plain version on the card in its three
-   modes on the same batch (M=384, grid 128x128x64): counts, messages, the
-   scattered grid and depths;
+   modes (M=384, grid 128x128x64), on the same batch and then on all rays
+   of view 0 in one launch (the plain version in spans), the kernel
+   updating a message store in place as the raynet pass does: counts,
+   messages, the scattered grid and depths, and every store entry past a
+   ray's count still zero;
 5. K3 (voxel traversal) against its plain version on the same batch:
    indices and counts identical, counts equal to K2's;
 6. the three forward passes end to end through their user entry point
@@ -24,10 +30,12 @@ order, every phase failing loudly (nonzero exit):
    and ``MultiViewCNNVoxelSpaceForwardPass``) on the paper-resolution ring
    rig: 1600x1200, focal 2750, 6 images, 2 reference views, 4 neighbours,
    simple_cnn with seeded random weights and bf16 features, D=32, grid
-   128x128x64, M=384, 65,536-ray batches (raynet: gamma 0.05, 3 BP
-   iterations and the depth sweep). For each: the kernel launch counts,
-   set to 0 just before the pass and read just after (each kernel the pass
-   runs must have launched), wall time, rays/s, phases, peak memory and the
+   128x128x64, M=384, 65,536-ray batches (raynet: whole images, gamma
+   0.05, 3 BP iterations and the depth sweep). For each: the kernel
+   launch counts, set to 0 just before the pass and read just after (each
+   kernel the pass runs must have launched; raynet K1 once per image and
+   K2 once per image and sweep: 2 and 8), wall time, rays/s, phases, peak
+   memory and the
    depth maps' sanity; then the same pass at 400x300 (focal scaled) on the
    card and, with the plain versions, on the CPU, whose depth maps must
    agree;
@@ -193,25 +201,54 @@ def main():
     times = {r["name"]: r for r in rows}
 
     def timing(name):
-        return {k: times[name][k]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        # the kernel alone on the batch, and on one whole image
+        image = times[name + " image"]
+        out = {k: times[name][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        out.update(image_ms=image["ms"], image_bound_ms=image["bound_ms"],
+                   image_rays=image["counts"]["rays"])
+        return out
+
+    # the whole of view 0, as the raynet pass launches K1 and K2 on it; the
+    # plain versions take it in N_RAYS-ray spans
+    rs_img, re_img = time_kernels.image_segments(rig)
+    n_img = rs_img.shape[0]
+
+    def spans(n):
+        return [(lo, min(lo + N_RAYS, n)) for lo in range(0, n, N_RAYS)]
 
     # 3. K1
-    log("== 3. K1 plane sweep vs plain, %d rays, features %s %s"
-        % (N_RAYS, tuple(features.shape), features.dtype))
-    S_k, cells_k = plane_sweep_scores(*ps_args, return_cells=True)
-    S_p = plane_sweep_scores_reference(*ps_args)
-    cells_p = plane_sweep_cells_reference(*ps_args[1:])
-    torch.cuda.synchronize()
-    cell_mism = int((cells_k != cells_p).any(dim=-1).sum())
-    k1_err = float((S_k - S_p).abs().max())
-    check(cell_mism == 0, "feature-cell mismatches %d (expect 0)" % cell_mism)
-    check(k1_err <= 1e-5, "max |score diff| %.3e <= 1e-5" % k1_err)
+    log("== 3. K1 plane sweep vs plain, features %s %s: one %d-ray batch, "
+        "then all %d rays of view 0 in one launch"
+        % (tuple(features.shape), features.dtype, N_RAYS, n_img))
+
+    def k1_check(label, rs_, re_):
+        args = ps_args[:2] + (rs_, re_) + ps_args[4:]
+        S_k, cells_k = plane_sweep_scores(*args, return_cells=True)
+        mism, err, S_p = 0, 0.0, []
+        for lo, hi in spans(rs_.shape[0]):
+            part = args[:2] + (rs_[lo:hi], re_[lo:hi]) + args[4:]
+            S_p.append(plane_sweep_scores_reference(*part))
+            cells_p = plane_sweep_cells_reference(*part[1:])
+            mism += int((cells_k[lo:hi] != cells_p).any(dim=-1).sum())
+            # a NaN counts as an infinite error
+            err = max(err, float((S_k[lo:hi] - S_p[-1]).abs().nan_to_num(
+                nan=float("inf")).max()))
+        torch.cuda.synchronize()
+        check(mism == 0, "%s: feature-cell mismatches %d (expect 0)"
+              % (label, mism))
+        check(err <= 1e-5, "%s: max |score diff| %.3e <= 1e-5" % (label, err))
+        return torch.cat(S_p), err
+
+    S_p, k1_err = k1_check("batch", rs, re)
+    S_img, k1_img_err = k1_check("image", rs_img, re_img)
     k1 = times["K1"]
+    k1i = times["K1 image"]
     log("  K1 %.3f ms, plain %.3f ms; bound %.4f ms (%s: %d feature rows, "
-        "%.1f MB)" % (k1["ms"], k1["plain_ms"], k1["bound_ms"],
-                      k1["bound_by"], k1["counts"]["feature_rows"],
-                      k1["nbytes"] / 1e6))
+        "%.1f MB); one whole image of %d rays %.3f ms, bound %.4f ms"
+        % (k1["ms"], k1["plain_ms"], k1["bound_ms"], k1["bound_by"],
+           k1["counts"]["feature_rows"], k1["nbytes"] / 1e6,
+           k1i["counts"]["rays"], k1i["ms"], k1i["bound_ms"]))
 
     # 4. K2
     # Tolerances: counts exact. First iteration (mu is the constant
@@ -227,91 +264,189 @@ def main():
     # mean errors at most twice the plain float32 version's (+1e-5, +1e-6),
     # for the messages and the grid (checked on the moderate inputs too).
     # Depth: within 1e-3 relative on >= 0.999 of the rays, zero masks
-    # identical.
-    log("== 4. K2 BP sweep vs plain, M=%d, grid %s" % (M, GRID))
+    # identical. The batch takes all three kinds of input; the whole image
+    # (one launch, as the raynet pass makes it) the real grids of its own
+    # first and second sweeps, its first-mode grid held like the message
+    # mode's (below).
+    log("== 4. K2 BP sweep (in place) vs plain, M=%d, grid %s: one %d-ray "
+        "batch, then all %d rays of view 0 in one launch"
+        % (M, GRID, N_RAYS, n_img))
     prior = float(log_prior(GAMMA))
     G = int(np.prod(GRID))
-    valid = torch.ones(N_RAYS, dtype=torch.int32, device=dev)
-    S = S_p.contiguous()
-    k2 = {}
 
-    def bp_args(msgs, grid_acc, grid_out, mode, S=S):
-        return (rs, re, valid, S, msgs, grid_acc, grid_out, center, bbox,
-                GRID, M, prior, mode)
+    def plain_sweep(seg, msgs, grid_acc, grid_out, mode,
+                    dtype=torch.float32):
+        # the plain version over the rays in N_RAYS-ray spans, concatenated;
+        # scores, messages and grid in ``dtype``
+        if grid_acc is not None:
+            grid_acc = grid_acc.to(dtype)
+        parts = [bp_sweep_reference(
+            seg[0][lo:hi], seg[1][lo:hi], seg[2][lo:hi].to(dtype),
+            None if msgs is None else msgs[lo:hi].to(dtype), grid_acc,
+            grid_out, center, bbox, GRID, M, prior, mode)
+            for lo, hi in spans(seg[0].shape[0])]
+        return tuple(None if parts[0][j] is None
+                     else torch.cat([q[j] for q in parts]) for j in range(3))
 
-    def sweep_both(msgs, grid_acc, mode):
-        # both scatter the batch into a zero grid, as the forward pass does
+    def sweep_both(label, seg, msgs, grid_acc, mode):
+        # both scatter into a zero grid, as the raynet pass does per image;
+        # the kernel updates a copy of the store in place (messages_in is
+        # messages_out; in first mode the store starts at zero), the plain
+        # version returns new messages
+        n = seg[0].shape[0]
         gk = torch.zeros(G, device=dev)
         gpl = torch.zeros(G, device=dev)
-        k = bp_sweep(*bp_args(msgs, grid_acc, gk, mode))
-        p_ = bp_sweep_reference(*bp_args(msgs, grid_acc, gpl, mode))
+        store = None
+        if mode != "depth":
+            store = (torch.zeros((n, M), device=dev) if msgs is None
+                     else msgs.clone())
+        k = bp_sweep(*seg, store if mode == "message" else msgs, grid_acc, gk,
+                     center, bbox, GRID, M, prior, mode, messages_out=store)
+        p_ = plain_sweep(seg, msgs, grid_acc, gpl, mode)
         torch.cuda.synchronize()
         check(bool(torch.equal(k[1], p_[1])),
-              "%s: counts identical (mean count %.2f)"
-              % (mode, float(p_[1].float().mean())))
+              "%s %s: counts identical (mean count %.2f)"
+              % (label, mode, float(p_[1].float().mean())))
+        if store is not None:
+            check(k[0] is store, "%s %s: messages written in place"
+                  % (label, mode))
+            tail = (torch.arange(M, device=dev)[None, :]
+                    >= p_[1][:, None])
+            check(not bool(torch.logical_and(store != 0, tail).any()),
+                  "%s %s: every entry past a ray's count still zero"
+                  % (label, mode))
         return k, gk, p_, gpl
 
+    # NaN: the plain version (as the JAX package) maps a zero-length
+    # segment that marches two or more cells to NaN scores (t = 0/0), so
+    # a whole image has NaN messages and grid cells. The kernel must have
+    # them in the same places; errors are taken over the other entries.
     def strict(label, a, b):
-        err = float((a - b).abs().max())
-        check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)),
-              "%s allclose(rtol 1e-4, atol 1e-5), max err %.3e" % (label, err))
+        nan = torch.isnan(b)
+        err = float((a - b).abs().masked_fill(nan, 0).max())
+        check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5, equal_nan=True)),
+              "%s allclose(rtol 1e-4, atol 1e-5, NaN in the same %d "
+              "places), max err %.3e" % (label, int(nan.sum()), err))
         return err
 
     def mostly_close(label, a, b):
-        close = float(torch.isclose(a, b, rtol=1e-4, atol=1e-5).float().mean())
+        close = float(torch.isclose(a, b, rtol=1e-4, atol=1e-5,
+                                    equal_nan=True).float().mean())
         check(close >= 0.9999, "%s: %.7f within rtol 1e-4, atol 1e-5"
               % (label, close))
 
     def as_accurate(label, kern, plain, exact):
-        ek = (kern.double() - exact).abs()
-        ep = (plain.double() - exact).abs()
-        ok = bool(ek.max() <= 2 * ep.max() + 1e-5
-                  and ek.mean() <= 2 * ep.mean() + 1e-6)
+        # max and mean errors over row spans (an image's messages are
+        # 0.7 G entries), where the float64 evaluation is not NaN; there
+        # both float32 versions must be NaN too
+        ek_max = ek_sum = ep_max = ep_sum = 0.0
+        n_nan, same_nan = 0, True
+        for lo, hi in spans(kern.shape[0]):
+            e = exact[lo:hi]
+            nan = torch.isnan(e)
+            k, p = kern[lo:hi].double(), plain[lo:hi].double()
+            same_nan &= bool(torch.equal(torch.isnan(k), nan)
+                             and torch.equal(torch.isnan(p), nan))
+            n_nan += int(nan.sum())
+            ek = (k - e).abs().masked_fill(nan, 0)
+            ep = (p - e).abs().masked_fill(nan, 0)
+            ek_max, ep_max = max(ek_max, float(ek.max())), max(
+                ep_max, float(ep.max()))
+            ek_sum += float(ek.sum())
+            ep_sum += float(ep.sum())
+        n = kern.numel() - n_nan
+        ek_mean, ep_mean = ek_sum / n, ep_sum / n
+        ok = (same_nan and ek_max <= 2 * ep_max + 1e-5
+              and ek_mean <= 2 * ep_mean + 1e-6)
         check(ok, "%s vs float64: kernel max %.3e mean %.3e, plain max %.3e "
-              "mean %.3e" % (label, ek.max(), ek.mean(), ep.max(), ep.mean()))
+              "mean %.3e; NaN in the same %d places: %s"
+              % (label, ek_max, ek_mean, ep_max, ep_mean, n_nan, same_nan))
 
-    # first iteration
-    (mk, k2_counts, _), gk, (m1, _, _), g1 = sweep_both(None, None, "first")
-    err = max(strict("first: messages", mk, m1), strict("first: grid", gk, g1))
-    g1 = g1 + prior  # the next iteration's grid
-    k2["first"] = {"max_abs_err": err, **timing("K2 first")}
+    def k2_checks(label, seg, moderate):
+        """K2 in its three modes on segments and scores ``seg``: the first
+        sweep, then message mode (if ``moderate``) on a seeded grid and
+        messages that keep mu moderate and on the real grid of the first
+        sweep, then depth on the second sweep's output (and on the moderate
+        inputs). Returns the per-mode errors and the first sweep's
+        counts."""
+        out = {}
+        (mk, counts, _), gk, (m1, _, _), g1 = sweep_both(label, seg, None,
+                                                         None, "first")
+        ray = seg[1] - seg[0]
+        log("  %s: %d rays march two or more cells on a zero-length segment"
+            % (label, int(((ray * ray).sum(1) == 0).logical_and(counts > 1)
+                          .sum())))
+        del ray
+        err = strict("%s first: messages" % label, mk, m1)
+        if label == "image":
+            # the image's 58.6 M float32 messages add into 1 M cells in
+            # another order than the plain version's spans do, and a cell's
+            # sum can cancel below its terms' rounding: its grid is held to
+            # the float64 evaluation, as the message mode's grids are
+            g64 = torch.zeros(G, dtype=torch.float64, device=dev)
+            plain_sweep(seg, None, None, g64, "first", torch.float64)
+            mostly_close("%s first: grid" % label, gk, g1)
+            as_accurate("%s first: grid" % label, gk, g1, g64)
+            err = max(err, float((gk - g1).abs().masked_fill(
+                torch.isnan(g1), 0).max()))
+            del g64
+        else:
+            err = max(err, strict("%s first: grid" % label, gk, g1))
+        out["first"] = {"max_abs_err": err}
+        g1 = g1 + prior  # the next iteration's grid
+        del mk
+        inputs = [("real grid", (m1, g1))]
+        if moderate:
+            # zero past each ray's count, as in the pass's store
+            rng = np.random.RandomState(1)
+            g_mod = f32(prior + 2.0 + rng.randn(G))
+            visited = torch.arange(M, device=dev)[None, :] < counts[:, None]
+            m_mod = torch.where(visited, f32(0.5 * rng.randn(*visited.shape)),
+                                0.0)
+            inputs.insert(0, ("moderate mu", (m_mod, g_mod)))
+            del visited
+        errs = {}
+        for what, (mi, gi) in inputs:
+            (mk, _, _), gk, (mp, _, _), gpl = sweep_both(label, seg, mi, gi,
+                                                         "message")
+            g64 = torch.zeros(G, dtype=torch.float64, device=dev)
+            m64, _, _ = plain_sweep(seg, mi, gi, g64, "message",
+                                    torch.float64)
+            name = "%s message (%s)" % (label, what)
+            if what == "moderate mu":
+                mostly_close(name + ": messages", mk, mp)
+                mostly_close(name + ": grid", gk, gpl)
+            errs[what] = float((mk - mp).abs().masked_fill(
+                torch.isnan(mp), 0).max())
+            as_accurate(name + ": messages", mk, mp, m64)
+            as_accurate(name + ": grid", gk, gpl, g64)
+            if what == "real grid":
+                m2, g2 = mp, gpl + prior
+            del mk, mp, m64
+        del m1
+        out["message"] = {"max_abs_err": errs.get("moderate mu"),
+                          "real_grid_max_abs_err": errs["real grid"]}
+        inputs = [("real grid", (m2, g2))] + inputs[:-1]
+        agree = {}
+        for what, (mi, gi) in inputs:
+            (_, _, dk), _, (_, _, dp), _ = sweep_both(label, seg, mi, gi,
+                                                      "depth")
+            a, b = dk.cpu().numpy(), dp.cpu().numpy()
+            agree[what] = rel_agreement(a, b, 1e-3)
+            check(agree[what] >= 0.999 and np.array_equal(a > 0, b > 0),
+                  "%s depth (%s): %.6f of rays within 1e-3 relative, zero "
+                  "masks identical" % (label, what, agree[what]))
+        out["depth"] = {"agreement": agree,
+                        "max_abs_err": float(np.abs(a - b).max())}
+        return out, counts
 
-    # message mode, well conditioned (seeded grid and messages)
-    rng = np.random.RandomState(1)
-    g_mod = f32(prior + 2.0 + rng.randn(G))
-    m_mod = f32(0.5 * rng.randn(N_RAYS, M))
-    errs = {}
-    for label, (mi, gi) in (("moderate mu", (m_mod, g_mod)),
-                            ("real grid", (m1, g1))):
-        (mk, _, _), gk, (mp, _, _), gpl = sweep_both(mi, gi, "message")
-        g64 = torch.zeros(G, dtype=torch.float64, device=dev)
-        m64, _, _ = bp_sweep_reference(*bp_args(
-            mi.double(), gi.double(), g64, "message", S=S.double()))
-        if label == "moderate mu":
-            mostly_close("message (%s): messages" % label, mk, mp)
-            mostly_close("message (%s): grid" % label, gk, gpl)
-        errs[label] = float((mk - mp).abs().max())
-        as_accurate("message (%s): messages" % label, mk, mp, m64)
-        as_accurate("message (%s): grid" % label, gk, gpl, g64)
-        if label == "real grid":
-            m2, g2 = mp, gpl + prior
-        del mk, mp, m64
-    k2["message"] = {"max_abs_err": errs["moderate mu"],
-                     "real_grid_max_abs_err": errs["real grid"],
-                     **timing("K2 message")}
-
-    # depth on the second sweep's output, and on the moderate inputs
-    depth_agree = {}
-    for label, (mi, gi) in (("real grid", (m2, g2)),
-                            ("moderate mu", (m_mod, g_mod))):
-        (_, _, dk), _, (_, _, dp), _ = sweep_both(mi, gi, "depth")
-        a, b = dk.cpu().numpy(), dp.cpu().numpy()
-        depth_agree[label] = rel_agreement(a, b, 1e-3)
-        check(depth_agree[label] >= 0.999 and np.array_equal(a > 0, b > 0),
-              "depth (%s): %.6f of rays within 1e-3 relative, zero masks "
-              "identical" % (label, depth_agree[label]))
-    k2["depth"] = {"agreement": depth_agree, "max_abs_err": float(
-        np.abs(a - b).max()), **timing("K2 depth")}
+    k2, k2_counts = k2_checks("batch", (rs, re, S_p.contiguous()), True)
+    k2_image, _ = k2_checks("image", (rs_img, re_img, S_img.contiguous()),
+                            False)
+    del S_img, rs_img, re_img
+    for mode in k2:
+        k2[mode].update(timing("K2 " + mode))
+        k2[mode]["image"] = k2_image[mode]
 
     # 5. K3
     log("== 5. K3 voxel traversal vs plain, M=%d, grid %s" % (M, GRID))
@@ -335,10 +470,12 @@ def main():
                             k3["bound_by"], k3["counts"]["visits"],
                             k3["counts"]["cells"]))
     for mode in k2:
-        r = times["K2 " + mode]
-        log("  K2 %s: %.3f ms, plain %.3f ms; bound %.4f ms (%.1f MB)"
-            % (mode, r["ms"], r["plain_ms"], r["bound_ms"], r["nbytes"] / 1e6))
-    del S_k, S_p, cells_k, cells_p, features, m_mod, m1, m2
+        r, ri = times["K2 " + mode], times["K2 %s image" % mode]
+        log("  K2 %s: %.3f ms, plain %.3f ms; bound %.4f ms (%.1f MB); one "
+            "whole image %.3f ms, bound %.4f ms (%.1f MB)"
+            % (mode, r["ms"], r["plain_ms"], r["bound_ms"], r["nbytes"] / 1e6,
+               ri["ms"], ri["bound_ms"], ri["nbytes"] / 1e6))
+    del S_p, features
 
     # 6. the three passes end to end
     counters = {"plane_sweep_scores": plane_sweep_scores,
@@ -378,6 +515,11 @@ def main():
         check(all(launches[k] > 0 for k in used)
               and all(v == 0 for k, v in launches.items() if k not in used),
               "%s: launched %s and no other kernel" % (name, sorted(used)))
+        if name == "raynet":
+            # K1 once per image, K2 once per image and sweep
+            expect = {"plane_sweep_scores": 2, "voxel_traversal_flat": 0,
+                      "bp_sweep": 2 * (RayNetForwardPass.bp_iterations + 1)}
+            check(launches == expect, "raynet: launches %s" % (expect,))
         allmaps = np.stack(maps)
         nz = allmaps[allmaps > 0]
         check(allmaps.shape == (2, H, W), "depth maps %s" % (allmaps.shape,))
@@ -584,24 +726,32 @@ def main():
               file=sys.stderr)
         return 1
 
-    def kernel(name, source, replaces, launches, err, row):
-        return {"name": name, "route": "cuda",
-                "source": "raynet_tpu_torch/csrc/" + source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    def kernel(name, source, replaces, launches, err, row, image=None):
+        out = {"name": name, "route": "cuda",
+               "source": "raynet_tpu_torch/csrc/" + source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": row["ms"],
+               "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+               "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if image is not None:  # one launch over a whole image
+            out.update(image_ms=image["ms"], image_bound_ms=image["bound_ms"],
+                       image_rays=image["counts"]["rays"])
+        return out
 
     kernels = [
         kernel("plane_sweep_scores", "planesweep.cu",
                "raynet_tpu/ops/pallas/planesweep.py:84",
-               total_launches["plane_sweep_scores"], k1_err, times["K1"]),
-        # first iteration and moderate-mu message mode; per mode above
+               total_launches["plane_sweep_scores"], max(k1_err, k1_img_err),
+               times["K1"], times["K1 image"]),
+        # first iteration (batch and image) and moderate-mu message mode;
+        # per mode above
         kernel("bp_sweep", "bp_sweep.cu",
                "raynet_tpu/ops/pallas/bp_beam.py:1062",
                total_launches["bp_sweep"],
-               max(k2["first"]["max_abs_err"], k2["message"]["max_abs_err"]),
-               times["K2 message"]),
+               max(k2["first"]["max_abs_err"],
+                   k2["first"]["image"]["max_abs_err"],
+                   k2["message"]["max_abs_err"]),
+               times["K2 message"], times["K2 message image"]),
         kernel("voxel_traversal_flat", "traversal.cu",
                "raynet_tpu/ops/pallas/traversal.py:28",
                total_launches["voxel_traversal_flat"], k3_err, times["K3"]),
@@ -614,9 +764,10 @@ def main():
                probe_launches["tensor_core_dot"],
                p2["rna"]["max_abs_err_held"], times["P2"]),
     ]
+    # strict JSON: a NaN here raises
     print(json.dumps({"bp_sweep_modes": k2, "passes": results,
-                      "probes": p2, "trace": traced}))
-    print(json.dumps({"kernels": kernels}))
+                      "probes": p2, "trace": traced}, allow_nan=False))
+    print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

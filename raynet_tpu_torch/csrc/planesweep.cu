@@ -15,16 +15,26 @@
 // feature cells equal PyTorch's), rounds half-to-even (rintf), clamps with
 // the both-zero sentinel, and reads the view's F-wide feature row with
 // 16-byte vector loads into f32 accumulators: sum_v f and sum_v |f|^2.
-// The pair sum is 0.5 (|sum f|^2 - sum |f|^2). The softmax is a warp-shuffle
-// max and sum over the lanes.
+// The pair sum is 0.5 (|sum f|^2 - sum |f|^2); its two sums of squares use
+// explicit fused multiply-adds (the -fmad=false build fuses nothing else).
+// The softmax is a warp-shuffle max and sum over the lanes. The launch takes
+// any number of rays: the raynet pass hands it all the rays of an image at
+// once, the mvcnn passes one batch at a time.
 //
-// What bounds it on the card: the gather. Each (ray, plane) reads V rows of
-// F values (V=5, F=32 bf16: 320 bytes) at data-dependent cells; neighbouring
-// planes of a ray land on nearby cells along the epipolar line, so rows are
-// mostly served from L2, but a lane's row reads are not coalesced with its
-// neighbours'. Arithmetic is ~2 V F flops per (ray, plane): negligible.
-// Keeping the 16-byte row loads and the f32 accumulators in registers is
-// the whole design; tiling the bands through shared memory is later work.
+// What bounds it on the card: the gather loop, not the bytes or the flops.
+// Each (ray, plane) reads V rows of F values (V=5, F=32 bf16: 320 bytes) at
+// data-dependent cells, many times the distinct rows a launch touches, so
+// rows come from L1 and L2; a warp's 32 lanes sit at 32 depths, so one
+// warp load touches up to 32 lines, and per (ray, plane, view) a lane
+// issues the projection (two IEEE divisions) and ~3 instructions per
+// feature value. The bound (tools/roofline.py) is the ~3 V F flops per
+// (ray, plane). Measured on an H100 and slower than this body (PERF.md):
+// one lane per ray over 32 neighbouring rays (a 65,536-ray batch is too
+// few threads to fill the card), a quad of lanes per ray and each row
+// split over a group of lanes (fewer lines per warp load, more warp
+// instructions), and the next view's row loaded ahead (more registers).
+// Staging each block's epipolar footprint in shared memory, or fetching it
+// with cp.async or TMA, is later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -108,13 +118,13 @@ __global__ void plane_sweep_kernel(
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           acc[c0 + j] += f[j];
-          sq += f[j] * f[j];
+          sq = __fmaf_rn(f[j], f[j], sq);
         }
       }
     }
     float dot = 0.0f;
 #pragma unroll
-    for (int j = 0; j < F; ++j) dot += acc[j] * acc[j];
+    for (int j = 0; j < F; ++j) dot = __fmaf_rn(acc[j], acc[j], dot);
     const float s = (0.5f * (dot - sq)) / n_pairs;
     out[d] = s;
     local_max = fmaxf(local_max, s);

@@ -11,13 +11,17 @@ between for the voxel-space pass). The raynet pass follows the reference
 schedule (raynet/forward_pass.py:579-748); for each call it
 
 1. computes the CNN features of every image it needs, once, cached per image;
-2. computes the plane-sweep scores of every ray of every reference view
-   once (they do not depend on the BP messages);
+2. computes the bbox segments and the plane-sweep scores of every ray of
+   every reference view once (neither depends on the BP messages);
 3. runs ``bp_iterations`` message sweeps over all reference views against
    one shared voxel log-odds grid, reset to the prior log(g/(1-g)) at every
    iteration, with the per-image messages kept on the device in float32,
-   (rays, M) in DDA order;
+   (rays, M) in DDA order, and updated in place;
 4. runs one depth sweep and yields a ``(W, H).T`` depth map per view.
+
+On the card each of these sweeps is one kernel launch per image (K1 once
+per image, K2 once per image and sweep); on the CPU the plain versions run
+``rays_batch`` rays at a time.
 
 What the JAX package adds on top of this — beam/band planners, box classes,
 host staging, the plan prefetcher, the sharded scan and the VMEM retry —
@@ -32,6 +36,7 @@ import torch
 from ..models.feature_extractor import zeropad_images
 from ..ops import fused
 from ..ops.mrf import log_prior
+from ..ops.sampling import segments_in_bbox
 from ..utils.profiling import PhaseTimer
 
 
@@ -47,7 +52,9 @@ def resolve_device(device):
 
 
 class ForwardPass:
-    """Shared plumbing: feature caching, ray enumeration, ray batches.
+    """Shared plumbing: feature caching, ray enumeration, ray batches (of
+    the per-view passes; ``rays_batch`` bounds the raynet pass's plain
+    versions on the CPU).
 
     The arguments are the JAX package's, plus ``device``; the ported passes
     sample along bbox segments and read neither ``sampling_scheme`` nor
@@ -255,32 +262,40 @@ class RayNetForwardPass(ForwardPass):
         ray_idxs = {
             i: self.get_valid_rays_per_image(scene, i) for i in ref_indices
         }
-        need = sum(len(r) * (M + D) * 4 for r in ray_idxs.values())
+        # per ray: the messages, the scores and the two segment endpoints
+        need = sum(len(r) * (M + D + 6) * 4 for r in ray_idxs.values())
         if need > self.messages_device_budget:
             raise RuntimeError(
-                "the messages and scores of %d views need %.2f GB of device "
-                "memory, over messages_device_budget = %.2f GB; run fewer "
-                "views per call (the host message store is not ported yet)"
-                % (len(ref_indices), need / 1e9,
-                   self.messages_device_budget / 1e9)
+                "the messages, scores and segments of %d views need %.2f GB "
+                "of device memory, over messages_device_budget = %.2f GB; run "
+                "fewer views per call (the host message store is not ported "
+                "yet)" % (len(ref_indices), need / 1e9,
+                          self.messages_device_budget / 1e9)
             )
-        batches = {i: self._ray_batches(ray_idxs[i]) for i in ref_indices}
-        common = dict(height=H, width=W, padding=gp.padding, depth_planes=D)
-        bp = dict(common, grid_shape=grid_shape, max_voxels=M)
+        common = dict(height=H, width=W, padding=gp.padding, depth_planes=D,
+                      rays_batch=self.rays_batch)
+        bp = dict(grid_shape=grid_shape, max_voxels=M,
+                  rays_batch=self.rays_batch)
 
         for i in ref_indices:
             self._features_and_cameras(scene, i)
-        scores = {}
+        segments, scores = {}, {}
         with self.timer.phase("Plane sweep"):
             for i in ref_indices:
                 features, P, P_pinv, center = self._features_and_cameras(
                     scene, i
                 )
-                scores[i] = fused.raynet_image_scores(
-                    torch.empty((len(ray_idxs[i]), D), dtype=torch.float32,
-                                device=dev),
-                    batches[i], features, P, P_pinv, center, bbox, **common,
+                idxs = torch.as_tensor(
+                    np.ascontiguousarray(ray_idxs[i]), device=dev
                 )
+                segments[i] = segments_in_bbox(
+                    idxs, P_pinv, center, bbox, H
+                )
+                scores[i] = fused.raynet_image_scores(
+                    *segments[i], features, P, **common,
+                )
+        # DDA order; a ray's count is the same in every sweep, so the
+        # entries past it stay zero
         messages = {
             i: torch.zeros((len(ray_idxs[i]), M), dtype=torch.float32,
                            device=dev)
@@ -295,22 +310,20 @@ class RayNetForwardPass(ForwardPass):
                     (grid_size,), prior, dtype=torch.float32, device=dev
                 )
                 for i in ref_indices:
-                    _, _, P_pinv, center = self._features_and_cameras(
-                        scene, i
-                    )
+                    center = self._features_and_cameras(scene, i)[3]
                     fused.raynet_image_update(
                         messages[i], scores[i], scatter_total, grid_acc,
-                        batches[i], P_pinv, center, bbox, **bp,
+                        *segments[i], center, bbox, **bp,
                         first_iteration=(iteration == 0), prior=prior,
                     )
                 grid_acc = scatter_total
 
         for i in ref_indices:
             with self.timer.phase("Per-pixel depth estimation"):
-                _, _, P_pinv, center = self._features_and_cameras(scene, i)
+                center = self._features_and_cameras(scene, i)[3]
                 depth = fused.raynet_image_depth(
-                    messages[i], scores[i], grid_acc, batches[i], P_pinv,
-                    center, bbox, **bp,
+                    messages[i], scores[i], grid_acc, *segments[i], center,
+                    bbox, **bp,
                 ).cpu().numpy()
             depth_map = np.zeros(H * W, dtype=np.float32)
             depth_map[ray_idxs[i]] = depth

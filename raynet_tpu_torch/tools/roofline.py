@@ -71,15 +71,17 @@ def voxel_traversal_cost(n_rays, M, visits):
 BP_MODES = ("first", "message", "depth")
 
 
-def bp_sweep_cost(mode, n_rays, M, D, visits, cells):
-    """K2 in ``mode``: the endpoints, valid, the (N, D) scores and (message,
-    depth) the visited messages and grid cells read once; the messages,
-    counts, depths and grid cells (atomics) written once; ~60 float32
-    operations per visited cell."""
-    common = _endpoint_bytes(n_rays) + n_rays * 4 + n_rays * D * 4 + n_rays * 4
+def bp_sweep_cost(mode, n_rays, D, visits, cells):
+    """K2 in ``mode``, updating the message store in place: the endpoints
+    and the (N, D) scores read, the (N,) counts written; the visited
+    messages read (message, depth) and written (first, message) once, with
+    no zero tail past each ray's count; the visited grid cells read
+    (message, depth) and written once (first, message: atomics); the (N,)
+    depths written (depth); ~60 float32 operations per visited cell."""
+    common = _endpoint_bytes(n_rays) + n_rays * D * 4 + n_rays * 4
     nbytes = {
-        "first": common + n_rays * M * 4 + cells * 4,
-        "message": common + visits * 4 + 2 * cells * 4 + n_rays * M * 4,
+        "first": common + visits * 4 + cells * 4,
+        "message": common + 2 * visits * 4 + 2 * cells * 4,
         "depth": common + visits * 4 + cells * 4 + n_rays * 4,
     }[mode]
     return Cost(nbytes, visits * 60, PEAK_F32_FLOPS)

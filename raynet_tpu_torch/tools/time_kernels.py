@@ -6,18 +6,22 @@ set: V=5, D=32, F=32; one batch of ``--rays`` rays through the grid
 128x128x64 at M=384), it times K1 (plane sweep), K2 (BP sweep) in its
 first, message and depth modes, K3 (voxel traversal), P1 (TMA box copy,
 case D2) and P2 (f32 product on the tensor cores, "rna" mode, 128^3), and
-beside P1 and P2 the one PyTorch call that computes the same. Each time is
-the median over ``--repeats`` CUDA-event runs of ``--iters`` launches
-each, per launch, after a warm-up. Bounds come from ``roofline`` with this
-batch's counts. ``chip_smoke.py`` takes its kernel times from
+beside P1 and P2 the one PyTorch call that computes the same. K1 and K2
+are timed again on one whole image (the 1,920,000 rays of view 0, rows
+"... image"), as the raynet pass launches them; K2 updates a message store
+in place, as the raynet pass does. Each time is the median over
+``--repeats`` CUDA-event runs of ``--iters`` launches each, per launch,
+after a warm-up. Bounds come from ``roofline`` with the
+counts of the rays at hand. ``chip_smoke.py`` takes its kernel times from
 ``time_all`` with ``--iters 1 --repeats 7 --plain``.
 
     python -m raynet_tpu_torch.tools.time_kernels [--rays 65536]
         [--iters 10] [--repeats 5] [--plain]
 
-``--plain`` also times each plain PyTorch version on the card (K2's and
-K3's take ~0.1-0.3 s a batch). Needs a CUDA card and exits nonzero without
-one. The last line is a JSON object of the rows and the card.
+``--plain`` also times each plain PyTorch version on the card, on the
+batch only (K2's and K3's take ~0.1-0.3 s a batch). Needs a CUDA card and
+exits nonzero without one. The last line is a JSON object of the rows and
+the card.
 """
 import argparse
 import json
@@ -78,7 +82,8 @@ def kernel_rig(device, n_rays=N_RAYS):
     rs, re = segments_in_bbox(ray_idxs, P_pinv, center, bbox, H)
     return types.SimpleNamespace(
         scene=scene, gp=gp, model=model, features=features, P=P,
-        center=center, bbox=bbox, rs=rs, re=re, H=H, W=W, n_rays=n_rays,
+        P_pinv=P_pinv, center=center, bbox=bbox, rs=rs, re=re, H=H, W=W,
+        n_rays=n_rays,
         ps_args=(features, P, rs, re, PADDING, H, W, D),
     )
 
@@ -111,15 +116,61 @@ def box_rows_library(src, y0, xg0, sub0):
     return view.to(torch.float32).reshape(NSUB * BH, WIDTH)
 
 
+def image_segments(rig):
+    """The (rows, 3) bbox segments of every ray of the rig's view 0, the
+    rays of one whole image as the raynet pass sweeps them."""
+    from ..ops.sampling import segments_in_bbox
+
+    idxs = torch.arange(rig.H * rig.W, dtype=torch.int32,
+                        device=rig.features.device)
+    return segments_in_bbox(idxs, rig.P_pinv, rig.center, rig.bbox, rig.H)
+
+
+def _k2_rows(row, suffix, rig, rs, re, S, visits, n_cells):
+    """K2 in its three modes on segments ``rs``, ``re`` and scores ``S``,
+    on the grids and messages of a real first and second sweep, each
+    launch updating a message store in place as the forward pass does."""
+    from ..ops import bp_sweep as k2
+    from ..ops.mrf import log_prior
+
+    dev = rs.device
+    n = rs.shape[0]
+    prior = float(log_prior(GAMMA))
+    scatter = torch.zeros(int(np.prod(GRID)), device=dev)
+
+    def args(mode, grid_acc, msgs):
+        return (rs, re, S, msgs, grid_acc, scatter, rig.center, rig.bbox,
+                GRID, M, prior, mode)
+
+    m1 = torch.zeros((n, M), device=dev)
+    k2.bp_sweep(*args("first", None, None), messages_out=m1)
+    g1 = scatter + prior
+    m2 = m1.clone()
+    scatter.zero_()
+    k2.bp_sweep(*args("message", g1, m2), messages_out=m2)
+    g2 = scatter + prior
+    out = torch.zeros((n, M), device=dev)
+    # message mode drifts m1 from launch to launch; its work stays the same
+    inputs = {"first": (None, None, out), "message": (g1, m1, m1),
+              "depth": (g2, m2, None)}
+    for mode in roofline.BP_MODES:
+        grid_acc, msgs, store = inputs[mode]
+        a = args(mode, grid_acc, msgs)
+        row("K2 %s%s" % (mode, suffix),
+            roofline.bp_sweep_cost(mode, n, D, visits, n_cells),
+            lambda: k2.bp_sweep(*a, messages_out=store),
+            (lambda: k2.bp_sweep_reference(*a)) if n <= N_RAYS else None,
+            visits=visits, cells=n_cells, rays=n)
+
+
 def time_all(rig, iters, repeats, plain):
     """Rows {name, ms, plain_ms, library_ms, bound_ms, bound_by, nbytes,
-    counts} of every kernel on ``rig``. ``plain_ms`` (median of 3 single
-    calls) only with ``plain``; ``library_ms`` where one PyTorch call
+    counts} of every kernel on ``rig``, on its batch and (K1, K2) on one
+    whole image. ``plain_ms`` (median of 3 single calls) only with
+    ``plain``, on the batch; ``library_ms`` where one PyTorch call
     computes the same function (P1: ``box_rows_library``; P2:
     ``torch.matmul`` with TF32 allowed), else None. ``counts`` are the
-    batch's counts the bound rests on."""
-    from ..ops.bp_sweep import bp_sweep, bp_sweep_reference
-    from ..ops.mrf import log_prior
+    counts the bound rests on."""
     from ..ops.planesweep import plane_sweep_scores, plane_sweep_scores_reference
     from ..ops.ray_marching import (
         voxel_traversal_flat,
@@ -142,7 +193,7 @@ def time_all(rig, iters, repeats, plain):
 
     def row(name, cost, kernel, reference, library=None, **counts):
         ms = time_ms(kernel, iters, repeats)
-        plain_ms = time_ms(reference, 1, 3, 1) if plain else None
+        plain_ms = time_ms(reference, 1, 3, 1) if plain and reference else None
         library_ms = time_ms(library, iters, repeats) if library else None
         bound_ms, bound_by = roofline.bound(cost)
         rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
@@ -168,31 +219,26 @@ def time_all(rig, iters, repeats, plain):
         lambda: voxel_traversal_flat(*k3_args),
         lambda: voxel_traversal_flat_reference(*k3_args),
         visits=visits, cells=n_cells)
+    _k2_rows(row, "", rig, rig.rs, rig.re, S, visits, n_cells)
+    del S
 
-    # K2 on the grids and messages of a real first and second sweep
-    prior = float(log_prior(GAMMA))
-    G = int(np.prod(GRID))
-    valid = torch.ones(n, dtype=torch.int32, device=dev)
-    scratch = torch.zeros(G, device=dev)
-
-    def bp_args(mode, msgs, grid_acc):
-        return (rig.rs, rig.re, valid, S, msgs, grid_acc, scratch,
-                rig.center, rig.bbox, GRID, M, prior, mode)
-
-    inputs = {"first": (None, None)}
-    msgs, _, _ = bp_sweep(*bp_args("first", None, None))
-    inputs["message"] = (msgs, scratch + prior)
-    scratch.zero_()
-    msgs, _, _ = bp_sweep(*bp_args("message", *inputs["message"]))
-    inputs["depth"] = (msgs, scratch + prior)
-    for mode in roofline.BP_MODES:
-        args = bp_args(mode, *inputs[mode])
-        row("K2 %s" % mode,
-            roofline.bp_sweep_cost(mode, n, M, D, visits, n_cells),
-            lambda: bp_sweep(*args), lambda: bp_sweep_reference(*args),
-            visits=visits, cells=n_cells)
-    del inputs, msgs
-
+    # one whole image, as the raynet pass launches K1 and K2: every ray of
+    # view 0 (the plain versions are not timed at this size)
+    rs, re = image_segments(rig)
+    n_img = rs.shape[0]
+    ps_args = (f, rig.P, rs, re, PADDING, rig.H, rig.W, D)
+    S, cells = plane_sweep_scores(*ps_args, return_cells=True)
+    n_rows = roofline.feature_rows(cells, f.shape)
+    del cells
+    row("K1 image", roofline.plane_sweep_cost(
+        n_img, f.shape[0], D, f.shape[3], f.element_size(), n_rows),
+        lambda: plane_sweep_scores(*ps_args), None, feature_rows=n_rows,
+        rays=n_img)
+    idx, counts = voxel_traversal_flat(rig.bbox, rs, re, GRID, M)
+    visits, n_cells = roofline.march_counts(idx, counts)
+    del idx, counts
+    _k2_rows(row, " image", rig, rs, re, S, visits, n_cells)
+    del S, rs, re
     src = box_source(dev)
     offs = case_offsets(*CASES[-1])
     row("P1", roofline.tma_box_cost(),
@@ -221,11 +267,11 @@ def format_rows(rows):
     def opt(v):
         return "-" if v is None else "%.4f" % v
 
-    lines = ["%-10s %9s %11s %-10s %7s %10s %10s" % (
+    lines = ["%-18s %9s %11s %-10s %7s %10s %10s" % (
         "kernel", "ms", "bound ms", "bound by", "share", "plain ms",
         "library ms")]
     for r in rows:
-        lines.append("%-10s %9.4f %11.7f %-10s %6.2f%% %10s %10s" % (
+        lines.append("%-18s %9.4f %11.7f %-10s %6.2f%% %10s %10s" % (
             r["name"], r["ms"], r["bound_ms"], r["bound_by"],
             100 * r["bound_ms"] / r["ms"], opt(r["plain_ms"]),
             opt(r["library_ms"])))

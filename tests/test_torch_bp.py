@@ -1,8 +1,11 @@
-"""K2's plain version (``bp_sweep_reference``, reached through the port's
-``fused`` steps) against the JAX package's XLA path
-(``fused.raynet_message_step`` with ``first_iteration`` True/False and
-``fused.raynet_depth_step``) on the same segments, scores, messages and
-grid.
+"""K2's plain version (``bp_sweep_reference``), reached through the raynet
+pass's per-image sweeps (``fused.raynet_image_update``, which updates an
+in-place message store, and ``fused.raynet_image_depth``; on the CPU they
+run in ``rays_batch`` spans, here 700 rays: odd chunks of the 1,728), against
+the JAX package's XLA path (``fused.raynet_message_step`` with
+``first_iteration`` True/False and ``fused.raynet_depth_step``) on the same
+segments, scores, messages and grid. The messages past each ray's count are
+zero, as in the pass's store.
 
 Tolerances:
 - counts exact;
@@ -80,16 +83,28 @@ def _jax_msg(rig, msgs, grid_acc, grid, M, first, n_valid=H * W):
     return np.asarray(m), np.asarray(scatter)
 
 
-def _port_msg(rig, msgs, grid_acc, grid, M, first, n_valid=H * W,
-              dtype=torch.float32):
-    m, scatter, _ = tfused.raynet_message_step(
-        _t(rig["idxs"]), _t(rig["feats"]), _t(rig["P"]), _t(rig["P_pinv"]),
-        _t(rig["center"]), _t(BBOX),
-        None if first else _t(msgs).to(dtype), _t(grid_acc).to(dtype),
-        n_valid, H, W, PAD, D, grid, M, first_iteration=first,
-        S_planes=_t(rig["S"]).to(dtype), prior=PRIOR,
+def _segments(rig, n=H * W):
+    """The port's bbox segments of the first ``n`` mock rays."""
+    return tsamp.segments_in_bbox(
+        _t(rig["idxs"][:n]), _t(rig["P_pinv"]), _t(rig["center"]), _t(BBOX),
+        H,
     )
-    return m.numpy(), scatter.numpy()
+
+
+def _port_msg(rig, msgs, grid_acc, grid, M, first, n=H * W,
+              dtype=torch.float32):
+    """One sweep of the port over the first ``n`` rays, in 700-ray spans,
+    updating a copy of ``msgs`` in place (a zero store in the first
+    iteration). Returns (messages, scatter)."""
+    store = (torch.zeros((n, M), dtype=dtype) if first
+             else _t(msgs[:n]).to(dtype))
+    scatter = torch.zeros(int(np.prod(grid)), dtype=dtype)
+    tfused.raynet_image_update(
+        store, _t(rig["S"][:n]).to(dtype), scatter, _t(grid_acc).to(dtype),
+        *_segments(rig, n), _t(rig["center"]), _t(BBOX), grid_shape=grid,
+        max_voxels=M, first_iteration=first, prior=PRIOR, rays_batch=700,
+    )
+    return store.numpy(), scatter.numpy()
 
 
 def _first_sweep(rig, grid, M):
@@ -99,12 +114,19 @@ def _first_sweep(rig, grid, M):
     return m, (s + PRIOR).astype(np.float32)
 
 
-def _moderate_inputs(grid, M, seed):
-    """A grid and messages that keep mu = sigmoid(grid - msg) moderate."""
+def _moderate_inputs(rig, grid, M, seed):
+    """A grid and messages that keep mu = sigmoid(grid - msg) moderate;
+    the messages are zero past each ray's count, as in the pass's store."""
     rng = np.random.RandomState(seed)
     G = int(np.prod(grid))
     grid_acc = (PRIOR + 2.0 + rng.randn(G)).astype(np.float32)
     msgs = (0.5 * rng.randn(H * W, M)).astype(np.float32)
+    rs, re = _segments(rig)
+    _, counts = jrm.voxel_traversal_flat(
+        jnp.asarray(BBOX), jnp.asarray(rs.numpy()), jnp.asarray(re.numpy()),
+        grid, M,
+    )
+    msgs[np.arange(M)[None, :] >= np.asarray(counts)[:, None]] = 0.0
     return msgs, grid_acc
 
 
@@ -122,7 +144,7 @@ def test_first_iteration_matches_jax(rig, grid, M):
 
 @pytest.mark.parametrize("grid, M", CASES)
 def test_message_mode_matches_jax(rig, grid, M):
-    msgs, grid_acc = _moderate_inputs(grid, M, seed=M)
+    msgs, grid_acc = _moderate_inputs(rig, grid, M, seed=M)
     jm, js = _jax_msg(rig, msgs, grid_acc, grid, M, False)
     tm, ts = _port_msg(rig, msgs, grid_acc, grid, M, False)
     np.testing.assert_allclose(tm, jm, rtol=1e-4, atol=1e-5)
@@ -147,7 +169,7 @@ def test_message_mode_on_a_real_grid_is_as_accurate_as_jax(rig, grid, M):
 @pytest.mark.parametrize("grid, M", CASES)
 def test_depth_matches_jax(rig, grid, M, moderate):
     if moderate:
-        msgs, grid_acc = _moderate_inputs(grid, M, seed=M + 1)
+        msgs, grid_acc = _moderate_inputs(rig, grid, M, seed=M + 1)
     else:
         msgs, grid_acc = _first_sweep(rig, grid, M)
     _, jd = jfused.raynet_depth_step(
@@ -157,10 +179,10 @@ def test_depth_matches_jax(rig, grid, M, moderate):
         jnp.asarray(grid_acc), H, W, PAD, D, grid, M,
         S_planes=jnp.asarray(rig["S"]),
     )
-    td = tfused.raynet_depth_step(
-        _t(rig["idxs"]), _t(rig["feats"]), _t(rig["P"]), _t(rig["P_pinv"]),
-        _t(rig["center"]), _t(BBOX), _t(msgs), _t(grid_acc), H, W, PAD, D,
-        grid, M, S_planes=_t(rig["S"]),
+    td = tfused.raynet_image_depth(
+        _t(msgs), _t(rig["S"]), _t(grid_acc), *_segments(rig),
+        _t(rig["center"]), _t(BBOX), grid_shape=grid, max_voxels=M,
+        rays_batch=700,
     ).numpy()
     jd = np.asarray(jd)
     assert td.shape == (H * W,) and np.isfinite(td).all()
@@ -171,13 +193,9 @@ def test_depth_matches_jax(rig, grid, M, moderate):
 
 @pytest.mark.parametrize("grid, M", CASES)
 def test_counts_match_jax_traversal(rig, grid, M):
-    rs, re = tsamp.segments_in_bbox(
-        _t(rig["idxs"]), _t(rig["P_pinv"]), _t(rig["center"]), _t(BBOX), H
-    )
-    valid = torch.ones(H * W, dtype=torch.int32)
-    valid[::7] = 0
+    rs, re = _segments(rig)
     _, counts, _ = tbp.bp_sweep(
-        rs, re, valid, _t(rig["S"]), None, None,
+        rs, re, _t(rig["S"]), None, None,
         torch.zeros(int(np.prod(grid))), _t(rig["center"]), _t(BBOX), grid,
         M, PRIOR, "first",
     )
@@ -185,8 +203,8 @@ def test_counts_match_jax_traversal(rig, grid, M):
         jnp.asarray(BBOX), jnp.asarray(rs.numpy()), jnp.asarray(re.numpy()),
         grid, M,
     )
-    expect = np.where(valid.numpy() != 0, np.asarray(jc), 0)
-    np.testing.assert_array_equal(counts.numpy(), expect)
+    assert int(counts.max()) > 1
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
 
 
 def test_single_voxel_rays(rig):
@@ -199,17 +217,16 @@ def test_single_voxel_rays(rig):
     rs = torch.tensor([[0.1, 0.1, 0.1], [0.2, 0.3, 0.4]])
     re = torch.tensor([[0.4, 0.4, 0.4], [0.3, 0.2, 0.1]])
     S = torch.softmax(torch.randn(2, D, generator=torch.Generator().manual_seed(0)), -1)
-    valid = torch.ones(2, dtype=torch.int32)
     G = int(np.prod(grid))
     grid_out = torch.zeros(G)
     msgs, counts, _ = tbp.bp_sweep(
-        rs, re, valid, S, None, None, grid_out, center, _t(BBOX), grid, M,
+        rs, re, S, None, None, grid_out, center, _t(BBOX), grid, M,
         PRIOR, "first",
     )
     assert counts.tolist() == [1, 1]
     assert not msgs.any() and not grid_out.any()
     _, _, depth = tbp.bp_sweep(
-        rs, re, valid, S, torch.zeros(2, M), torch.full((G,), PRIOR), None,
+        rs, re, S, torch.zeros(2, M), torch.full((G,), PRIOR), None,
         center, _t(BBOX), grid, M, PRIOR, "depth",
     )
     expect = torch.linalg.norm(torch.full((3,), 0.25) - center)
@@ -217,30 +234,99 @@ def test_single_voxel_rays(rig):
 
 
 def test_padded_rows_scatter_nothing(rig):
-    """Rows >= n_valid (the padded tail of a batch) get zero messages and
-    leave the grid as the valid rows alone would."""
+    """The JAX step's padded batch (rows >= n_valid visit no voxel: zero
+    messages, nothing scattered) equals the port's sweep over the valid rows
+    alone, which is how the port's per-image sweeps take a ragged image."""
     grid, M = CASES[0]
     G = int(np.prod(grid))
-    msgs, grid_acc = _moderate_inputs(grid, M, seed=3)
+    msgs, grid_acc = _moderate_inputs(rig, grid, M, seed=3)
     n_valid = 700
     for first in (True, False):
         # the first sweep's grid holds the prior
         g = np.full(G, PRIOR, np.float32) if first else grid_acc
         tm, ts = _port_msg(rig, msgs, g, grid, M, first, n_valid)
-        assert not tm[n_valid:].any()
         jm, js = _jax_msg(rig, msgs, g, grid, M, first, n_valid)
-        np.testing.assert_allclose(tm, jm, rtol=1e-4, atol=1e-5)
+        assert tm.shape == (n_valid, M) and not jm[n_valid:].any()
+        np.testing.assert_allclose(tm, jm[:n_valid], rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(ts, js, rtol=1e-4, atol=1e-5)
         assert ts.shape == (G,)
 
 
+def _chain_inputs(rig, n):
+    """Segments and scores of the first ``n`` mock rays (1727: not a
+    multiple of 32 or 128)."""
+    return (*_segments(rig, n), _t(rig["S"][:n]))
+
+
+def _sweep(rs, re, S, center, grid, M, mode, msgs, grid_acc, spans,
+           in_place):
+    """One sweep over ``spans`` of the rays: the in-place store ``msgs``
+    updated row range by row range as the raynet pass does, or new
+    messages out of place. Returns (messages, counts, scatter)."""
+    scatter = torch.zeros(int(np.prod(grid)))
+    out = msgs if in_place else torch.zeros_like(msgs)
+    counts = torch.zeros(rs.shape[0], dtype=torch.int32)
+    for lo, hi in spans:
+        m, c, _ = tbp.bp_sweep(
+            rs[lo:hi], re[lo:hi], S[lo:hi],
+            None if mode == "first" else msgs[lo:hi],
+            None if mode == "first" else grid_acc, scatter, center,
+            _t(BBOX), grid, M, PRIOR, mode,
+            messages_out=msgs[lo:hi] if in_place else None,
+        )
+        if not in_place:
+            out[lo:hi] = m
+        counts[lo:hi] = c
+    return out, counts, scatter
+
+
+@pytest.mark.parametrize("check", [
+    "in_place_equals_out_of_place", "tails_stay_zero",
+    "odd_chunks_equal_one_call",
+])
+@pytest.mark.parametrize("grid, M", CASES)
+def test_in_place_store_over_first_message_message(rig, grid, M, check):
+    """The raynet pass's store, swept first -> message -> message in place:
+    equal to the out-of-place sweeps; zero past each ray's count after
+    every sweep; and one call over all N rays equal to the same rays in odd
+    chunks (per-ray results exact, the scatter within rtol 1e-4, atol
+    1e-5: index_add_ sums the chunks in another order)."""
+    n = H * W - 1
+    rs, re, S = _chain_inputs(rig, n)
+    center = _t(rig["center"])
+    whole = [(0, n)]
+    odd = [(0, 700), (700, 1033), (1033, n)]
+    store = torch.zeros(n, M)
+    grid_acc = None
+    for mode in ("first", "message", "message"):
+        before = store.clone()
+        m, counts, scatter = _sweep(rs, re, S, center, grid, M, mode, store,
+                                    grid_acc, whole, in_place=True)
+        assert m is store
+        if check == "in_place_equals_out_of_place":
+            m2, c2, s2 = _sweep(rs, re, S, center, grid, M, mode, before,
+                                grid_acc, whole, in_place=False)
+            assert torch.equal(m2, store) and torch.equal(c2, counts)
+            assert torch.equal(s2, scatter)
+        elif check == "tails_stay_zero":
+            tail = torch.arange(M)[None, :] >= counts[:, None]
+            assert int(counts.max()) > 1 and not store[tail].any()
+            assert store[~tail].abs().max() > 1.0
+        else:
+            m2, c2, s2 = _sweep(rs, re, S, center, grid, M, mode,
+                                before.clone(), grid_acc, odd, in_place=True)
+            assert torch.equal(c2, counts)
+            np.testing.assert_allclose(m2.numpy(), store.numpy(), rtol=1e-4,
+                                       atol=1e-5)
+            np.testing.assert_allclose(s2.numpy(), scatter.numpy(),
+                                       rtol=1e-4, atol=1e-5)
+        grid_acc = scatter + PRIOR
+
+
 def test_wrapper_takes_plain_path_on_cpu(rig):
     grid, M = CASES[0]
-    rs, re = tsamp.segments_in_bbox(
-        _t(rig["idxs"]), _t(rig["P_pinv"]), _t(rig["center"]), _t(BBOX), H
-    )
-    valid = torch.ones(H * W, dtype=torch.int32)
-    args = (rs, re, valid, _t(rig["S"]), None, None)
+    rs, re = _segments(rig)
+    args = (rs, re, _t(rig["S"]), None, None)
     tail = (_t(rig["center"]), _t(BBOX), grid, M, PRIOR, "first")
     tbp.bp_sweep.launches = 0
     g1 = torch.zeros(int(np.prod(grid)))

@@ -11,7 +11,9 @@ Tolerances: K1 feature cells exact and scores rtol=1e-5, atol=1e-6 (the
 kernel sums features in another order); K2 counts exact, messages and
 scatter rtol=1e-4, atol=1e-5 on short rays (M <= 64) with inputs that keep
 the BP recurrence well conditioned (float atomics reorder the grid sums),
-depth within 1e-5 relative on >= 0.999 of the rays; K3 indices and counts
+store entries the kernel must not write exact, NaN (from NaN grid cells)
+in the same places as the plain version, depth within 1e-5 relative on
+>= 0.999 of the rays; K3 indices and counts
 exact; P1 equal to its plain version bit for bit; P2 within
 2**-9 * (|x| @ |e|) of the float64 product (TF32 operands) and within
 2**-16 * (|x| @ |e|) of the float64 product of its rounded operands ("rna":
@@ -50,8 +52,11 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _rig(device, ref=1):
-    scene = RingScene(6, H, W, 2750.0 / 1600 * W, angle_origin=1)
+def _rig(device, ref=1, shape=(H, W), n=None):
+    """Cameras and the bbox segments of the first ``n`` rays (all by
+    default) of a ring scene of ``shape``."""
+    h, w = shape
+    scene = RingScene(6, h, w, 2750.0 / 1600 * w, angle_origin=1)
     cams = [scene.get_image(j).camera for j in scene.get_view_idxs(ref, 4)]
 
     def f32(a):
@@ -60,8 +65,9 @@ def _rig(device, ref=1):
     P = f32(np.stack([c.P for c in cams]))
     P_pinv, center = f32(cams[0].P_pinv), f32(cams[0].center[:3, 0])
     bbox = f32(scene.bbox.reshape(-1))
-    idxs = torch.arange(H * W, dtype=torch.int32, device=device)
-    rs, re = segments_in_bbox(idxs, P_pinv, center, bbox, H)
+    idxs = torch.arange(h * w if n is None else n, dtype=torch.int32,
+                        device=device)
+    rs, re = segments_in_bbox(idxs, P_pinv, center, bbox, h)
     return P, center, bbox, rs, re
 
 
@@ -86,6 +92,25 @@ def test_plane_sweep_kernel_matches_plain(cuda, dtype, D, F):
     torch.testing.assert_close(S, S_ref, rtol=1e-5, atol=1e-6)
 
 
+def test_plane_sweep_kernel_on_a_ragged_batch(cuda):
+    """65,537 rays (one past a multiple of the 64-ray block) at the main
+    path's D=32, F=32 bf16: the last warp holds one ray."""
+    shape, n = (300, 400), 65537
+    P, _, _, rs, re = _rig(cuda, shape=shape, n=n)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    feats = 0.25 * torch.randn((5, 300 + PAD + 1, 400 + PAD + 1, 32),
+                               generator=g)
+    feats = feats.to(device=cuda, dtype=torch.bfloat16)
+    args = (feats, P, rs, re, PAD, 300, 400, 32)
+    S, cells = ps.plane_sweep_scores(*args, return_cells=True)
+    S_ref = ps.plane_sweep_scores_reference(*args)
+    cells_ref = ps.plane_sweep_cells_reference(*args[1:])
+    torch.cuda.synchronize()
+    assert S.shape == (n, 32)
+    assert torch.equal(cells, cells_ref)
+    torch.testing.assert_close(S, S_ref, rtol=1e-5, atol=1e-6)
+
+
 def test_plane_sweep_kernel_rejects_what_it_cannot_take(cuda):
     P, _, _, rs, re = _rig(cuda)
     feats = torch.zeros((5, H + PAD + 1, W + PAD + 1, 12), device=cuda)
@@ -99,8 +124,8 @@ def test_plane_sweep_kernel_rejects_what_it_cannot_take(cuda):
         ps.plane_sweep_scores(feats, P.cpu(), rs, re, PAD, H, W, 8)
 
 
-def _bp_inputs(device, grid, M, D=8, seed=0):
-    P, center, bbox, rs, re = _rig(device)
+def _bp_inputs(device, grid, M, D=8, seed=0, shape=(H, W), n=None):
+    P, center, bbox, rs, re = _rig(device, shape=shape, n=n)
     rng = np.random.RandomState(seed)
     n = rs.shape[0]
     G = int(np.prod(grid))
@@ -108,22 +133,33 @@ def _bp_inputs(device, grid, M, D=8, seed=0):
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
+    # the last 100 rays miss the grid: they visit no voxel
+    rs, re = rs.clone(), re.clone()
+    rs[n - 100:] = bbox[:3] - 10.0
+    re[n - 100:] = bbox[:3] - 9.0
     S = torch.softmax(f32(rng.randn(n, D)), dim=-1)
-    valid = torch.ones(n, dtype=torch.int32, device=device)
-    valid[n - 100:] = 0
     grid_acc = f32(PRIOR + 2.0 + rng.randn(G))
     msgs = f32(0.5 * rng.randn(n, M))
-    return rs, re, valid, S, msgs, grid_acc, center, bbox
+    return rs, re, S, msgs, grid_acc, center, bbox
 
 
+@pytest.mark.parametrize("nan_every", [0, 97], ids=["finite", "nan-cells"])
 @pytest.mark.parametrize("mode", ["first", "message", "depth"])
 @pytest.mark.parametrize("grid, M", [((16, 16, 16), 32), ((32, 24, 16), 64)])
-def test_bp_sweep_kernel_matches_plain(cuda, mode, grid, M):
-    rs, re, valid, S, msgs, grid_acc, center, bbox = _bp_inputs(cuda, grid, M)
+def test_bp_sweep_kernel_matches_plain(cuda, mode, grid, M, nan_every):
+    """``nan_every``: every so many grid cells NaN, as the plain version
+    (and the JAX package) leaves them where a zero-length segment marches
+    two or more cells (its hat score is 0/0). The kernel then has NaN
+    messages and grid cells in the same places, and in depth mode takes a
+    ray's first cell wherever its posterior has a NaN, as the plain
+    version's argmax of an all-NaN row does."""
+    rs, re, S, msgs, grid_acc, center, bbox = _bp_inputs(cuda, grid, M)
+    if nan_every:
+        grid_acc[::nan_every] = float("nan")
     G = int(np.prod(grid))
     gk = torch.full((G,), PRIOR, device=cuda)
     gp = gk.clone()
-    args = (rs, re, valid, S, msgs, grid_acc)
+    args = (rs, re, S, msgs, grid_acc)
     tail = (center, bbox, grid, M, PRIOR, mode)
     bp.bp_sweep.launches = 0
     mk, ck, dk = bp.bp_sweep(*args, gk, *tail)
@@ -139,8 +175,55 @@ def test_bp_sweep_kernel_matches_plain(cuda, mode, grid, M):
         assert float(agree) >= 0.999
     else:
         assert dk is None and dp is None
-        torch.testing.assert_close(mk, mp, rtol=1e-4, atol=1e-5)
-        torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5)
+        assert bool(torch.isnan(mp).any()) == (nan_every > 0
+                                               and mode != "first")
+        torch.testing.assert_close(mk, mp, rtol=1e-4, atol=1e-5,
+                                   equal_nan=True)
+        torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("mode", ["first", "message", "depth"])
+@pytest.mark.parametrize("grid, M, shape, n", [
+    ((16, 16, 16), 32, (H, W), None), ((32, 24, 16), 64, (H, W), None),
+    ((32, 24, 16), 64, (450, 500), 200003),
+], ids=["4800-M32", "4800-M64", "200003-M64"])
+def test_bp_sweep_kernel_in_place_matches_plain(cuda, mode, grid, M, shape,
+                                                n):
+    """K2 updating a store in place (messages_in is messages_out), as the
+    raynet pass does, against the plain version; 200,003 rays is not a
+    multiple of the block. The store starts as random messages in every
+    entry: the kernel writes each ray's k < count and leaves the rest, so
+    the entries past a ray's count (and the rows of the 100 rays that miss
+    the grid) keep their old values exactly."""
+    rs, re, S, msgs, grid_acc, center, bbox = _bp_inputs(
+        cuda, grid, M, shape=shape, n=n)
+    G = int(np.prod(grid))
+    gk = torch.zeros(G, device=cuda)
+    gp = gk.clone()
+    store = msgs.clone()
+    tail = (center, bbox, grid, M, PRIOR, mode)
+    msg_in = None if mode == "first" else store
+    bp.bp_sweep.launches = 0
+    mk, ck, dk = bp.bp_sweep(rs, re, S, msg_in, grid_acc, gk, *tail,
+                             messages_out=None if mode == "depth" else store)
+    assert bp.bp_sweep.launches == 1
+    mp, cp, dp = bp.bp_sweep_reference(rs, re, S, msgs, grid_acc, gp, *tail)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp)
+    assert int(cp.max()) > 1 and int(cp[-100:].max()) == 0
+    if mode == "depth":
+        assert torch.equal(store, msgs)
+        assert torch.equal(dk > 0, dp > 0)
+        agree = ((dk - dp).abs() <= 1e-5 * dp.abs()).float().mean()
+        assert float(agree) >= 0.999
+        return
+    assert mk is store
+    visited = torch.arange(M, device=cuda)[None, :] < cp[:, None]
+    assert torch.equal(store[~visited], msgs[~visited])
+    torch.testing.assert_close(store[visited], mp[visited], rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5)
 
 
 def test_bp_sweep_kernel_single_voxel_rays(cuda):
@@ -152,14 +235,13 @@ def test_bp_sweep_kernel_single_voxel_rays(cuda):
     rs = torch.tensor([[0.1, 0.1, 0.1], [0.2, 0.3, 0.4]], device=cuda)
     re = torch.tensor([[0.4, 0.4, 0.4], [0.3, 0.2, 0.1]], device=cuda)
     S = torch.full((2, 8), 1.0 / 8, device=cuda)
-    valid = torch.ones(2, dtype=torch.int32, device=cuda)
     grid_out = torch.zeros(G, device=cuda)
-    msgs, counts, _ = bp.bp_sweep(rs, re, valid, S, None, None, grid_out,
+    msgs, counts, _ = bp.bp_sweep(rs, re, S, None, None, grid_out,
                                   center, bbox, grid, M, PRIOR, "first")
     assert counts.tolist() == [1, 1]
     assert not msgs.any() and not grid_out.any()
     _, _, depth = bp.bp_sweep(
-        rs, re, valid, S, torch.zeros((2, M), device=cuda),
+        rs, re, S, torch.zeros((2, M), device=cuda),
         torch.full((G,), PRIOR, device=cuda), None, center, bbox, grid, M,
         PRIOR, "depth",
     )
@@ -180,8 +262,9 @@ def test_forward_pass_on_the_card_matches_the_cpu(cuda):
     fp = RayNetForwardPass(model, gp, None, scene.image_shape, 700,
                            device=cuda)
     gpu = np.stack(list(fp.forward_pass(scene, (0, 2, 1))))
-    assert ps.plane_sweep_scores.launches == 2 * 3
-    assert bp.bp_sweep.launches == 2 * 3 * 4
+    # once per image, and once per image and sweep, whatever rays_batch
+    assert ps.plane_sweep_scores.launches == 2
+    assert bp.bp_sweep.launches == 2 * 4
     # the CPU pass reads the same features (computed on the card)
     fp_cpu = RayNetForwardPass(model, gp, None, scene.image_shape, 700,
                                device="cpu")
@@ -246,9 +329,8 @@ def test_traversal_kernel_matches_plain(cuda, geometry, grid, M):
 
 def test_traversal_kernel_counts_equal_bp_sweep_counts(cuda):
     grid, M = (32, 24, 16), 64
-    rs, re, valid, S, _, _, center, bbox = _bp_inputs(cuda, grid, M)
-    valid.fill_(1)
-    _, counts, _ = bp.bp_sweep(rs, re, valid, S, None, None,
+    rs, re, S, _, _, center, bbox = _bp_inputs(cuda, grid, M)
+    _, counts, _ = bp.bp_sweep(rs, re, S, None, None,
                                torch.zeros(int(np.prod(grid)), device=cuda),
                                center, bbox, grid, M, PRIOR, "first")
     _, k3_counts = rm.voxel_traversal_flat(bbox, rs, re, grid, M)

@@ -4,7 +4,8 @@ profiler helpers, and the entry points' refusal to run without a card.
 The byte totals and bounds are those ``chip_smoke.py`` printed for its
 65,536-ray batch (V=5, D=32, F=32 bf16, M=384, grid 128x128x64) with that
 batch's counts: 609,377 feature rows, 3,569,246 visits, 76,900 distinct
-cells.
+cells; and for one whole image (the 1,920,000 rays of view 0): 8,787,774
+feature rows, 58,617,680 visits, all 1,048,576 cells.
 """
 import os
 
@@ -17,19 +18,29 @@ from raynet_tpu_torch.utils import profiling
 
 N, V, D, F, M = 65536, 5, 32, 32, 384
 ROWS, VISITS, CELLS = 609377, 3569246, 76900
+N_IMG, ROWS_IMG, VISITS_IMG, CELLS_IMG = 1920000, 8787774, 58617680, 1048576
 
 
 @pytest.mark.parametrize("cost, mb, bound_ms, bound_by", [
     (roofline.plane_sweep_cost(N, V, D, F, 2, ROWS), 49.0, 0.0182,
      "operations"),
-    (roofline.bp_sweep_cost("first", N, M, D, VISITS, CELLS), 111.5, 0.0333,
+    (roofline.bp_sweep_cost("first", N, D, VISITS, CELLS), 24.8, 0.0074,
      "bytes"),
-    (roofline.bp_sweep_cost("message", N, M, D, VISITS, CELLS), 126.0,
-     0.0376, "bytes"),
-    (roofline.bp_sweep_cost("depth", N, M, D, VISITS, CELLS), 25.3, 0.0076,
+    (roofline.bp_sweep_cost("message", N, D, VISITS, CELLS), 39.4, 0.0118,
+     "bytes"),
+    (roofline.bp_sweep_cost("depth", N, D, VISITS, CELLS), 25.1, 0.0075,
      "bytes"),
     (roofline.voxel_traversal_cost(N, M, VISITS), 102.5, 0.0306, "bytes"),
-], ids=["K1", "K2-first", "K2-message", "K2-depth", "K3"])
+    (roofline.plane_sweep_cost(N_IMG, V, D, F, 2, ROWS_IMG), 854.3, 0.5319,
+     "operations"),
+    (roofline.bp_sweep_cost("first", N_IMG, D, VISITS_IMG, CELLS_IMG), 538.2,
+     0.1607, "bytes"),
+    (roofline.bp_sweep_cost("message", N_IMG, D, VISITS_IMG, CELLS_IMG),
+     776.9, 0.2319, "bytes"),
+    (roofline.bp_sweep_cost("depth", N_IMG, D, VISITS_IMG, CELLS_IMG), 545.9,
+     0.1629, "bytes"),
+], ids=["K1", "K2-first", "K2-message", "K2-depth", "K3", "K1-image",
+        "K2-first-image", "K2-message-image", "K2-depth-image"])
 def test_roofline_reproduces_the_chip_smoke_bounds(cost, mb, bound_ms,
                                                    bound_by):
     assert round(cost.nbytes / 1e6, 1) == mb
