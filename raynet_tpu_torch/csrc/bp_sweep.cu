@@ -69,6 +69,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "hat.cuh"
 #include "march.cuh"
 
 namespace {
@@ -82,8 +83,6 @@ constexpr int kTile = 33;  // padded row of the message tile
 constexpr int kMaxPlanes = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-constexpr float kTLo = (float)1e-4;
-constexpr float kTHi = (float)(1.0 - 1e-4);
 constexpr float kSLo = (float)1e-5;
 constexpr float kSHi = (float)(1.0 - 1e-5);
 constexpr float kMuLo = (float)1e-4;
@@ -92,16 +91,6 @@ constexpr float kPLo = (float)1e-37;
 constexpr float kPHi = (float)(1.0 - 1e-7);
 constexpr float kTiny = (float)1e-30;
 
-// NaN-propagating max/clip, as jnp.maximum/jnp.clip and torch.clamp
-// behave (fmaxf/fminf would drop a NaN)
-__device__ __forceinline__ float maxf(float x, float lo) {
-  return x < lo ? lo : x;
-}
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
 // Positive occupancy-to-ray message from a log-odds quotient
 // (raynet_tpu/ops/mrf.occupancy_to_ray).
 __device__ __forceinline__ float occupancy_mu(float pon) {
@@ -109,34 +98,6 @@ __device__ __forceinline__ float occupancy_mu(float pon) {
   const float t1 = expf(0.0f - mx);
   const float t2 = expf(pon - mx);
   return clampf(t2 / (t1 + t2), kMuLo, kMuHi);
-}
-
-// One ray's segment and the grid it marches.
-struct Ray {
-  float rs[3], re[3], ray[3], bmin[3], bin[3];
-  float rr;
-  int grid[3];
-};
-
-// The hat-mapped score of the march's current cell from the ray's D plane
-// scores S (ops/planes_voxels.depth_planes_to_voxels): the cell centre's t
-// on the segment, clipped, interpolated between the two bracketing planes;
-// a NaN t gives lo 0.
-__device__ __forceinline__ float hat_score(const VoxelMarch& m, const Ray& g,
-                                           const float* S, int D) {
-  float c[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    c[a] = g.bmin[a] + (float)m.cur[a] * g.bin[a] + g.bin[a] / 2.0f;
-  const float t = clampf(((c[0] - g.rs[0]) * g.ray[0] +
-                          (c[1] - g.rs[1]) * g.ray[1] +
-                          (c[2] - g.rs[2]) * g.ray[2]) / g.rr,
-                         kTLo, kTHi);
-  const float x = t * (float)(D - 1);
-  int lo = (int)floorf(x);
-  lo = lo < 0 ? 0 : (lo > D - 2 ? D - 2 : lo);
-  const float f = x - (float)lo;
-  return S[lo] + (S[lo + 1] - S[lo]) * f;
 }
 
 // Columns c0 .. c0+31 of the warp's 32 message rows (from row r0 of an
@@ -191,19 +152,7 @@ __global__ void __launch_bounds__(kThreads) bp_sweep_kernel(
   __syncwarp();
   const float* S = S_tile + lane * ss;
 
-  Ray g;
-  g.grid[0] = gx;
-  g.grid[1] = gy;
-  g.grid[2] = gz;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    g.bmin[a] = bbox[a];
-    g.bin[a] = (bbox[3 + a] - bbox[a]) / (float)g.grid[a];
-    g.rs[a] = live ? ray_start[3 * r + a] : 0.0f;
-    g.re[a] = live ? ray_end[3 * r + a] : 0.0f;
-    g.ray[a] = g.re[a] - g.rs[a];
-  }
-  g.rr = g.ray[0] * g.ray[0] + g.ray[1] * g.ray[1] + g.ray[2] * g.ray[2];
+  const Ray g = ray_setup(ray_start, ray_end, r, live, bbox, gx, gy, gz);
 
   // A: the march's count and the mapped scores' total
   int count = 0;
@@ -259,12 +208,7 @@ __global__ void __launch_bounds__(kThreads) bp_sweep_kernel(
     float dist = 0.0f;
     if (count > 0) {
       const int cell[3] = {best / (gy * gz), (best / gz) % gy, best % gz};
-      float dd[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        dd[a] = g.bmin[a] + (float)cell[a] * g.bin[a] + g.bin[a] / 2.0f -
-                camera_center[a];
-      dist = sqrtf(dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]);
+      dist = cell_distance(cell, g, camera_center);
     }
     if (live) depth[r] = dist;
     return;

@@ -4,11 +4,12 @@
 Port of ``raynet_tpu/inference/forward_pass.py``: the ``ForwardPass`` base
 (:109-583), ``MultiViewCNNForwardPass`` (:587),
 ``MultiViewCNNVoxelSpaceForwardPass`` (:621) and ``RayNetForwardPass``
-(:658). The first two run
-one fused step per ray batch of each reference view (the plane sweep and
-its argmax depth; with the voxel traversal and the depth->voxel mapping in
-between for the voxel-space pass). The raynet pass follows the reference
-schedule (raynet/forward_pass.py:579-748); for each call it
+(:658). The first two compute each reference view's bbox segments once
+and its depths over all of its rays (``fused.mvcnn_image_depth``: the plane
+sweep and its argmax depth; ``fused.mvcnn_voxel_image_depth``: the plane
+sweep, then the voxel traversal, depth->voxel mapping and argmax in K3's
+voxel-depth mode). The raynet pass follows the reference schedule
+(raynet/forward_pass.py:579-748); for each call it
 
 1. computes the CNN features of every image it needs, once, cached per image;
 2. computes the bbox segments and the plane-sweep scores of every ray of
@@ -20,8 +21,9 @@ schedule (raynet/forward_pass.py:579-748); for each call it
 4. runs one depth sweep and yields a ``(W, H).T`` depth map per view.
 
 On the card each of these sweeps is one kernel launch per image (K1 once
-per image, K2 once per image and sweep); on the CPU the plain versions run
-``rays_batch`` rays at a time.
+per image in every pass, K3's voxel-depth mode once per image in the
+voxel-space pass, K2 once per image and sweep in the raynet pass); on the
+CPU the plain versions run ``rays_batch`` rays at a time.
 
 What the JAX package adds on top of this — beam/band planners, box classes,
 host staging, the plan prefetcher, the sharded scan and the VMEM retry —
@@ -52,9 +54,9 @@ def resolve_device(device):
 
 
 class ForwardPass:
-    """Shared plumbing: feature caching, ray enumeration, ray batches (of
-    the per-view passes; ``rays_batch`` bounds the raynet pass's plain
-    versions on the CPU).
+    """Shared plumbing: feature caching and ray enumeration. ``rays_batch``
+    bounds the rays the plain versions take at a time on the CPU; on the
+    card every kernel takes a whole image.
 
     The arguments are the JAX package's, plus ``device``; the ported passes
     sample along bbox segments and read neither ``sampling_scheme`` nor
@@ -141,26 +143,6 @@ class ForwardPass:
                 self._feature_cache.popitem(last=False)
         return self._feature_cache[ref_idx]
 
-    def _ray_batches(self, ray_idxs):
-        """(offset, n_valid, chunk) per ``rays_batch`` rays; the last chunk
-        is padded with its last ray, and the steps mask the padded rows
-        (n_valid) out of every scatter."""
-        b = self.rays_batch
-        out = []
-        for off in range(0, len(ray_idxs), b):
-            chunk = ray_idxs[off:off + b]
-            n_valid = len(chunk)
-            if n_valid < b:
-                chunk = np.concatenate(
-                    [chunk, np.full(b - n_valid, chunk[-1], np.int32)]
-                )
-            out.append((
-                off, n_valid,
-                torch.as_tensor(np.ascontiguousarray(chunk),
-                                device=self.device),
-            ))
-        return out
-
     def forward_pass(self, scene, images_range):
         raise NotImplementedError()
 
@@ -173,10 +155,12 @@ def _check_images_range(images_range):
 
 class _PerViewDepthPass(ForwardPass):
     """A pass whose depth of a ray depends only on its own view set: one
-    step per ray batch, a ``(W, H).T`` depth map per reference view."""
+    per-image depth of every reference view, a ``(W, H).T`` depth map
+    each."""
 
-    def _depth_step(self, chunk, features, P, P_pinv, center, bbox, H, W):
-        """(N,) float32 depths of the rays of ``chunk``."""
+    def _image_depth(self, segments, features, P, center, bbox, H, W):
+        """(rows,) float32 depths of the rays of one image, from their
+        bbox ``segments`` (ray_start, ray_end)."""
         raise NotImplementedError()
 
     def forward_pass(self, scene, images_range):
@@ -193,14 +177,12 @@ class _PerViewDepthPass(ForwardPass):
             features, P, P_pinv, center = self._features_and_cameras(
                 scene, ref_idx
             )
-            depth = torch.zeros(len(ray_idxs), dtype=torch.float32,
-                                device=self.device)
             with self.timer.phase("Per-pixel depth estimation"):
-                for off, n_valid, chunk in self._ray_batches(ray_idxs):
-                    d = self._depth_step(chunk, features, P, P_pinv, center,
-                                         bbox, H, W)
-                    depth[off:off + n_valid] = d[:n_valid]
-                depth = depth.cpu().numpy()
+                idxs = torch.as_tensor(np.ascontiguousarray(ray_idxs),
+                                       device=self.device)
+                segments = segments_in_bbox(idxs, P_pinv, center, bbox, H)
+                depth = self._image_depth(segments, features, P, center,
+                                          bbox, H, W).cpu().numpy()
             depth_map = np.zeros(H * W, dtype=np.float32)
             depth_map[ray_idxs] = depth
             yield depth_map.reshape(W, H).T
@@ -209,27 +191,28 @@ class _PerViewDepthPass(ForwardPass):
 class MultiViewCNNForwardPass(_PerViewDepthPass):
     """Plane-sweep scoring + argmax depth (factory name: multi_view_cnn)."""
 
-    def _depth_step(self, chunk, features, P, P_pinv, center, bbox, H, W):
+    def _image_depth(self, segments, features, P, center, bbox, H, W):
         gp = self._generation_params
-        _, depth = fused.mvcnn_depth_step(
-            chunk, features, P, P_pinv, center, bbox, H, W, gp.padding,
-            gp.depth_planes,
+        return fused.mvcnn_image_depth(
+            *segments, features, P, center, height=H, width=W,
+            padding=gp.padding, depth_planes=gp.depth_planes,
+            rays_batch=self.rays_batch,
         )
-        return depth
 
 
 class MultiViewCNNVoxelSpaceForwardPass(_PerViewDepthPass):
     """Plane sweep + voxel traversal + depth->voxel argmax
     (factory name: multi_view_cnn_voxel_space)."""
 
-    def _depth_step(self, chunk, features, P, P_pinv, center, bbox, H, W):
+    def _image_depth(self, segments, features, P, center, bbox, H, W):
         gp = self._generation_params
-        *_, depth = fused.mvcnn_voxel_depth_step(
-            chunk, features, P, P_pinv, center, bbox, H, W, gp.padding,
-            gp.depth_planes, tuple(int(g) for g in gp.grid_shape),
-            int(gp.max_number_of_marched_voxels),
+        return fused.mvcnn_voxel_image_depth(
+            *segments, features, P, center, bbox, height=H, width=W,
+            padding=gp.padding, depth_planes=gp.depth_planes,
+            grid_shape=tuple(int(g) for g in gp.grid_shape),
+            max_voxels=int(gp.max_number_of_marched_voxels),
+            rays_batch=self.rays_batch,
         )
-        return depth
 
 
 class RayNetForwardPass(ForwardPass):

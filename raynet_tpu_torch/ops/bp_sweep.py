@@ -21,12 +21,7 @@ import torch
 
 from . import cuda_build
 from .mrf import bp_update, bp_update_first, depth_estimate
-from .planes_voxels import planes_to_voxels_mapping
-from .ray_marching import (
-    unflatten_voxel_indices,
-    voxel_centers,
-    voxel_traversal_flat_reference,
-)
+from .voxel_depth import argmax_voxel_depth, plain_voxel_scores
 
 MODES = {"first": 0, "message": 1, "depth": 2}
 MAX_PLANES = 128
@@ -46,14 +41,8 @@ def bp_sweep_reference(
         raise ValueError("unknown bp_sweep mode %r" % (mode,))
     grid_shape = tuple(int(g) for g in grid_shape)
     grid_size = grid_shape[0] * grid_shape[1] * grid_shape[2]
-    depth_planes = S_planes.shape[1]
-    flat_idx, counts = voxel_traversal_flat_reference(
-        bbox, ray_start, ray_end, grid_shape, max_voxels
-    )
-    vox = unflatten_voxel_indices(flat_idx, grid_shape)
-    S_vox = planes_to_voxels_mapping(
-        S_planes, vox, counts, ray_start, ray_end, bbox, grid_shape,
-        depth_planes,
+    flat_idx, vox, counts, S_vox = plain_voxel_scores(
+        bbox, ray_start, ray_end, S_planes, grid_shape, max_voxels
     )
     if mode == "first":
         pon = torch.tensor(prior, dtype=torch.float32, device=S_vox.device)
@@ -66,14 +55,8 @@ def bp_sweep_reference(
         )
     else:
         S_new = depth_estimate(S_vox, flat_idx, counts, messages_in, grid_acc)
-        centers = voxel_centers(vox, bbox, grid_shape)
-        best = torch.argmax(S_new, dim=-1)  # first maximum
-        rows = torch.arange(best.shape[0], device=best.device)
-        d = centers[rows, best] - camera_center[None]
-        depth = torch.sqrt(
-            d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-        )
-        depth = torch.where(counts > 0, depth, torch.zeros_like(depth))
+        depth = argmax_voxel_depth(S_new, vox, counts, camera_center, bbox,
+                                   grid_shape)
         return None, counts, depth
     grid_out.add_(scatter)
     if messages_out is None:

@@ -48,6 +48,9 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
     "raynet_voxel_traversal": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "raynet_voxel_argmax_depth": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ),
     "raynet_probe_tma_box": (_P, _P, _I, _I, _I, _I, _I, _P),
     "raynet_probe_tf32_dot": (_P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -1,44 +1,41 @@
-"""The mvcnn passes' per-ray-batch steps and the raynet pass's per-image
-sweeps.
+"""The mvcnn passes' steps and per-image depths, and the raynet pass's
+per-image sweeps.
 
 Port of ``raynet_tpu/ops/fused.py``: ``mvcnn_depth_step`` (:93-138) and
-``mvcnn_voxel_depth_step`` (:155-209) per batch; ``raynet_image_scores``,
+``mvcnn_voxel_depth_step`` (:155-209) are the JAX package's per-batch
+steps, with every output they return; ``mvcnn_image_depth`` and
+``mvcnn_voxel_image_depth`` compute their depths over all rays of one
+image, which is what the mvcnn passes run. ``raynet_image_scores``,
 ``raynet_image_update`` and ``raynet_image_depth`` do over all rays of one
 image what the JAX package's ``raynet_message_step`` (:228-329) and
 ``raynet_depth_step`` (:713-791) do per batch, and its per-image loops
 (:491, :626) around them. They hand the heavy work to the kernels' wrappers
-(``plane_sweep_scores``, ``voxel_traversal_flat``, ``bp_sweep``), which run
-the CUDA kernels for CUDA tensors and the plain versions for CPU tensors.
-The per-image sweeps take an image's segments, computed once, and launch
-each kernel once per image on the card; on the CPU they run the plain
-versions ``rays_batch`` rays at a time (``image_spans``). The JAX steps'
-batch padding (``n_valid``), band, tile-order and ``use_pallas`` arguments
-exist for Mosaic and have no counterpart: the kernels gather directly.
+(``plane_sweep_scores``, ``voxel_traversal_flat``, ``voxel_argmax_depth``,
+``bp_sweep``), which run the CUDA kernels for CUDA tensors and the plain
+versions for CPU tensors. The per-image functions take an image's
+segments, computed once, and launch each kernel once per image on the
+card; on the CPU they run the plain versions ``rays_batch`` rays at a time
+(``image_spans``). The JAX steps' batch padding (``n_valid``), band,
+tile-order and ``use_pallas`` arguments exist for Mosaic and have no
+counterpart: the kernels gather directly.
 """
 import torch
 
 from .bp_sweep import bp_sweep
 from .planes_voxels import planes_to_voxels_mapping
 from .planesweep import plane_sweep_scores
-from .ray_marching import (
-    unflatten_voxel_indices,
-    voxel_centers,
-    voxel_traversal_flat,
+from .ray_marching import unflatten_voxel_indices, voxel_traversal_flat
+from .sampling import (
+    sample_points_along_segments,
+    segments_in_bbox,
+    true_divisor,
 )
-from .sampling import sample_points_along_segments, segments_in_bbox
+from .voxel_depth import argmax_voxel_depth, distance_to, voxel_argmax_depth
 
 
 def _grid_size(grid_shape):
     g = [int(x) for x in grid_shape]
     return g[0] * g[1] * g[2]
-
-
-def _distance_to(points, camera_center):
-    """(N,) Euclidean distance of (N, 3) points from the camera centre."""
-    d = points - camera_center[None]
-    return torch.sqrt(
-        d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-    )
 
 
 def mvcnn_depth_step(
@@ -59,7 +56,7 @@ def mvcnn_depth_step(
     best = torch.argmax(S, dim=-1)  # first maximum
     points = sample_points_along_segments(ray_start, ray_end, depth_planes)
     rows = torch.arange(best.shape[0], device=best.device)
-    return S, _distance_to(points[rows, best], camera_center)
+    return S, distance_to(points[rows, best], camera_center)
 
 
 def mvcnn_voxel_depth_step(
@@ -86,14 +83,8 @@ def mvcnn_voxel_depth_step(
         S_planes, vox, counts, ray_start, ray_end, bbox, grid_shape,
         depth_planes,
     )
-    best = torch.argmax(S_vox, dim=-1)  # first maximum
-    rows = torch.arange(best.shape[0], device=best.device)
-    # only the arg-max voxels' centres: the (N, M, 3) centres of the JAX
-    # step hold the same values
-    depth = _distance_to(
-        voxel_centers(vox[rows, best], bbox, grid_shape), camera_center
-    )
-    depth = torch.where(counts > 0, depth, torch.zeros_like(depth))
+    depth = argmax_voxel_depth(S_vox, vox, counts, camera_center, bbox,
+                               grid_shape)
     return S_vox, vox, counts, depth
 
 
@@ -111,6 +102,44 @@ def _by_span(fn, n_rays, rays_batch, device):
     """``fn(lo, hi)`` over ``image_spans``, concatenated along rows."""
     parts = [fn(lo, hi) for lo, hi in image_spans(n_rays, rays_batch, device)]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def mvcnn_image_depth(
+    ray_start, ray_end, features, P, camera_center, *, height, width,
+    padding, depth_planes, rays_batch,
+):
+    """Plane-sweep argmax depth (rows,) of every ray of one image, from its
+    (rows, 3) segments: ``mvcnn_depth_step``'s depth. Only each ray's
+    chosen plane point is formed, with the formula of
+    ``sample_points_along_segments``, not the (rows, D, 3) points."""
+    def span(lo, hi):
+        rs, re = ray_start[lo:hi], ray_end[lo:hi]
+        S = plane_sweep_scores(
+            features, P, rs, re, padding, height, width, depth_planes,
+        )
+        best = torch.argmax(S, dim=-1).to(torch.float32)  # first maximum
+        frac = best / true_divisor(depth_planes - 1, rs.device)
+        return distance_to(rs + frac[:, None] * (re - rs), camera_center)
+
+    return _by_span(span, ray_start.shape[0], rays_batch, ray_start.device)
+
+
+def mvcnn_voxel_image_depth(
+    ray_start, ray_end, features, P, camera_center, bbox, *, height, width,
+    padding, depth_planes, grid_shape, max_voxels, rays_batch,
+):
+    """Voxel-space argmax depth (rows,) of every ray of one image, from its
+    (rows, 3) segments: ``mvcnn_voxel_depth_step``'s depth, through the
+    plane sweep and ``voxel_argmax_depth``."""
+    def span(lo, hi):
+        rs, re = ray_start[lo:hi], ray_end[lo:hi]
+        S = plane_sweep_scores(
+            features, P, rs, re, padding, height, width, depth_planes,
+        )
+        return voxel_argmax_depth(bbox, rs, re, S, camera_center, grid_shape,
+                                  max_voxels)[0]
+
+    return _by_span(span, ray_start.shape[0], rays_batch, ray_start.device)
 
 
 def raynet_image_scores(

@@ -4,8 +4,9 @@ Port of ``raynet_tpu/ops/ray_marching.py:29-172``. ``voxel_traversal`` is
 the plain march: a loop over the static step budget M whose body is
 elementwise over all N rays, with the early exit as an ``alive`` mask. The
 same semantics are the ``__device__`` march of the CUDA kernels
-(``csrc/march.cuh``), which K3 (``csrc/traversal.cu``, behind
-``voxel_traversal_flat``) and K2 run:
+(``csrc/march.cuh``), which K3 (``csrc/traversal.cu``: its rows mode behind
+``voxel_traversal_flat``, its voxel-depth mode behind
+``voxel_depth.voxel_argmax_depth``) and K2 run:
 
 - eps = 1e-2 boundary nudging of both endpoints;
 - the first voxel is emitted iff it is inside the grid;
@@ -162,23 +163,29 @@ def _voxel_traversal_cuda(bbox, ray_start, ray_end, grid_shape, max_voxels):
     return idx, counts
 
 
+def check_grid(op, grid_shape, max_voxels):
+    """Raise ValueError unless the grid and M are positive and the grid's
+    voxel count fits the kernels' int32 flat index."""
+    gx, gy, gz = (int(g) for g in grid_shape)
+    if min(gx, gy, gz) < 1 or int(max_voxels) < 1:
+        raise ValueError("%s: grid %s and max_voxels %d must be positive"
+                         % (op, (gx, gy, gz), max_voxels))
+    if gx * gy * gz > _INT32_MAX:
+        raise ValueError(
+            "%s: grid %s has %d voxels; the flat int32 index takes at most "
+            "2**31 - 1" % (op, (gx, gy, gz), gx * gy * gz)
+        )
+
+
 def voxel_traversal_flat(bbox, ray_start, ray_end, grid_shape, max_voxels):
     """Traversal returning (N, M) FLAT int32 indices (zero past each ray's
-    count) + (N,) int32 counts: the CUDA kernel K3 for CUDA tensors, the
-    plain version for CPU tensors.
+    count) + (N,) int32 counts: K3's rows mode for CUDA tensors, the plain
+    version for CPU tensors.
 
     bbox: (6,) float32; ray_start, ray_end: (N, 3) float32, on the card all
     three contiguous. The grid's voxel count must fit the int32 flat index.
     """
-    gx, gy, gz = (int(g) for g in grid_shape)
-    if min(gx, gy, gz) < 1 or int(max_voxels) < 1:
-        raise ValueError("voxel_traversal_flat: grid %s and max_voxels %d "
-                         "must be positive" % ((gx, gy, gz), max_voxels))
-    if gx * gy * gz > _INT32_MAX:
-        raise ValueError(
-            "voxel_traversal_flat: grid %s has %d voxels; the flat int32 "
-            "index takes at most 2**31 - 1" % ((gx, gy, gz), gx * gy * gz)
-        )
+    check_grid("voxel_traversal_flat", grid_shape, max_voxels)
     args = (bbox, ray_start, ray_end, grid_shape, max_voxels)
     if ray_start.device.type == "cuda":
         return _voxel_traversal_cuda(*args)

@@ -68,6 +68,15 @@ def voxel_traversal_cost(n_rays, M, visits):
     return Cost(nbytes, visits * 25, PEAK_F32_FLOPS)
 
 
+def voxel_depth_cost(n_rays, D, visits):
+    """K3's voxel-depth mode: the endpoints, the (N, D) scores, the bbox
+    and the camera centre read, the (N,) depths and counts written; ~40
+    float32 operations per visited cell (march and hat mapping, one
+    march)."""
+    nbytes = _endpoint_bytes(n_rays) + n_rays * D * 4 + 24 + 12 + n_rays * 8
+    return Cost(nbytes, visits * 40, PEAK_F32_FLOPS)
+
+
 BP_MODES = ("first", "message", "depth")
 
 

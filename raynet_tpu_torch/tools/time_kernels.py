@@ -4,11 +4,12 @@ Counterpart of ``tools/time_kernels.py``. On the kernel rig (the 6-image
 ring scene at 1600x1200, seeded ``simple_cnn`` bf16 features of one view
 set: V=5, D=32, F=32; one batch of ``--rays`` rays through the grid
 128x128x64 at M=384), it times K1 (plane sweep), K2 (BP sweep) in its
-first, message and depth modes, K3 (voxel traversal), P1 (TMA box copy,
-case D2) and P2 (f32 product on the tensor cores, "rna" mode, 128^3), and
-beside P1 and P2 the one PyTorch call that computes the same. K1 and K2
-are timed again on one whole image (the 1,920,000 rays of view 0, rows
-"... image"), as the raynet pass launches them; K2 updates a message store
+first, message and depth modes, K3 (voxel traversal) in its rows mode
+("K3") and its voxel-depth mode ("K3 depth"), P1 (TMA box copy, case D2)
+and P2 (f32 product on the tensor cores, "rna" mode, 128^3), and beside P1
+and P2 the one PyTorch call that computes the same. K1, K2 and K3 (both
+modes) are timed again on one whole image (the 1,920,000 rays of view 0,
+rows "... image"), as the passes launch them; K2 updates a message store
 in place, as the raynet pass does. Each time is the median over
 ``--repeats`` CUDA-event runs of ``--iters`` launches each, per launch,
 after a warm-up. Bounds come from ``roofline`` with the
@@ -165,8 +166,8 @@ def _k2_rows(row, suffix, rig, rs, re, S, visits, n_cells):
 
 def time_all(rig, iters, repeats, plain):
     """Rows {name, ms, plain_ms, library_ms, bound_ms, bound_by, nbytes,
-    counts} of every kernel on ``rig``, on its batch and (K1, K2) on one
-    whole image. ``plain_ms`` (median of 3 single calls) only with
+    counts} of every kernel on ``rig``, on its batch and (K1, K2, K3) on
+    one whole image. ``plain_ms`` (median of 3 single calls) only with
     ``plain``, on the batch; ``library_ms`` where one PyTorch call
     computes the same function (P1: ``box_rows_library``; P2:
     ``torch.matmul`` with TF32 allowed), else None. ``counts`` are the
@@ -175,6 +176,10 @@ def time_all(rig, iters, repeats, plain):
     from ..ops.ray_marching import (
         voxel_traversal_flat,
         voxel_traversal_flat_reference,
+    )
+    from ..ops.voxel_depth import (
+        voxel_argmax_depth,
+        voxel_argmax_depth_reference,
     )
     from .probe_dma_align import (
         CASES,
@@ -219,10 +224,14 @@ def time_all(rig, iters, repeats, plain):
         lambda: voxel_traversal_flat(*k3_args),
         lambda: voxel_traversal_flat_reference(*k3_args),
         visits=visits, cells=n_cells)
+    depth_args = (rig.bbox, rig.rs, rig.re, S, rig.center, GRID, M)
+    row("K3 depth", roofline.voxel_depth_cost(n, D, visits),
+        lambda: voxel_argmax_depth(*depth_args),
+        lambda: voxel_argmax_depth_reference(*depth_args), visits=visits)
     _k2_rows(row, "", rig, rig.rs, rig.re, S, visits, n_cells)
-    del S
+    del S, depth_args
 
-    # one whole image, as the raynet pass launches K1 and K2: every ray of
+    # one whole image, as the passes launch K1, K2 and K3: every ray of
     # view 0 (the plain versions are not timed at this size)
     rs, re = image_segments(rig)
     n_img = rs.shape[0]
@@ -237,6 +246,14 @@ def time_all(rig, iters, repeats, plain):
     idx, counts = voxel_traversal_flat(rig.bbox, rs, re, GRID, M)
     visits, n_cells = roofline.march_counts(idx, counts)
     del idx, counts
+    row("K3 image", roofline.voxel_traversal_cost(n_img, M, visits),
+        lambda: voxel_traversal_flat(rig.bbox, rs, re, GRID, M), None,
+        visits=visits, cells=n_cells, rays=n_img)
+    depth_args = (rig.bbox, rs, re, S, rig.center, GRID, M)
+    row("K3 depth image", roofline.voxel_depth_cost(n_img, D, visits),
+        lambda: voxel_argmax_depth(*depth_args), None, visits=visits,
+        rays=n_img)
+    del depth_args
     _k2_rows(row, " image", rig, rs, re, S, visits, n_cells)
     del S, rs, re
     src = box_source(dev)

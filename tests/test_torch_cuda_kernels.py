@@ -14,7 +14,11 @@ the BP recurrence well conditioned (float atomics reorder the grid sums),
 store entries the kernel must not write exact, NaN (from NaN grid cells)
 in the same places as the plain version, depth within 1e-5 relative on
 >= 0.999 of the rays; K3 indices and counts
-exact; P1 equal to its plain version bit for bit; P2 within
+exact; K3's voxel-depth mode counts and zero masks exact, depth within
+1e-3 relative on >= 0.999 of the rays and every other ray at a voxel whose
+plain mapped score is within rtol 1e-5 of the ray's maximum (the plain
+version divides the scores by their total, which can merge two an ulp
+apart), zero-length rays at their first voxel; P1 equal to its plain version bit for bit; P2 within
 2**-9 * (|x| @ |e|) of the float64 product (TF32 operands) and within
 2**-16 * (|x| @ |e|) of the float64 product of its rounded operands ("rna":
 only the f32 sums differ), its "rna" diagonal exact.
@@ -33,6 +37,7 @@ from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
 from raynet_tpu_torch.ops import bp_sweep as bp
 from raynet_tpu_torch.ops import planesweep as ps
 from raynet_tpu_torch.ops import ray_marching as rm
+from raynet_tpu_torch.ops import voxel_depth as vd
 from raynet_tpu_torch.ops.mrf import log_prior
 from raynet_tpu_torch.ops.sampling import segments_in_bbox
 from raynet_tpu_torch.tools import probe_dma_align as probes
@@ -280,11 +285,19 @@ def _traversal_inputs(device, geometry):
         _, _, bbox, rs, re = _rig(device)
         return bbox, rs, re
     bbox = np.array([-2.0, -1.0, 0.5, 2.0, 3.0, 4.5], dtype=np.float32)
-    n = 1000  # not a multiple of the kernel's 128-thread block
+    n = 1000  # not a multiple of a block; the last warp holds 8 rays
     lo, hi = bbox[:3], bbox[3:]
     if geometry == "misses":
         rs = np.tile(lo - 10.0, (n, 1))
         re = rs + 1.0
+    elif geometry == "zero":
+        # zero-length segments on a bbox face: the nudged ends fall in
+        # different cells, so the march runs on with 0/0 hat scores; then
+        # zero-length segments anywhere, then opposite faces
+        rs = rng.uniform(lo, hi, (n, 3))
+        rs[:300, 0] = lo[0]
+        re = rs.copy()
+        re[600:, 2] = lo[2] + hi[2] - rs[600:, 2]
     else:  # opposite faces in both directions, exact diagonals first
         rs = rng.uniform(lo, hi, (n, 3))
         re = rng.uniform(lo, hi, (n, 3))
@@ -300,11 +313,17 @@ def _traversal_inputs(device, geometry):
     return f32(bbox), f32(rs), f32(re)
 
 
-@pytest.mark.parametrize("geometry, grid, M", [
+# M < 32, M not a multiple of 32, M = 1, a grid whose flat index nears
+# 2**31 - 1, rays that miss, and zero-length segments
+GEOMETRIES = [
     ("ring", (12, 12, 12), 24), ("ring", (128, 128, 64), 384),
     ("faces", (7, 11, 6), 40), ("faces", (7, 11, 6), 1),
-    ("misses", (4, 4, 4), 8),
-])
+    ("faces", (1024, 1024, 2047), 100), ("misses", (4, 4, 4), 8),
+    ("zero", (7, 11, 6), 40),
+]
+
+
+@pytest.mark.parametrize("geometry, grid, M", GEOMETRIES)
 def test_traversal_kernel_matches_plain(cuda, geometry, grid, M):
     bbox, rs, re = _traversal_inputs(cuda, geometry)
     # leave garbage where the caching allocator will put the outputs: the
@@ -325,6 +344,99 @@ def test_traversal_kernel_matches_plain(cuda, geometry, grid, M):
         assert not counts.any()
     elif M > 1:
         assert int(counts.max()) > 1
+    if grid[0] == 1024:
+        assert int(idx.max()) > 2 ** 30
+
+
+def _plane_scores(n, D, device, seed=4):
+    """Seeded softmax scores, two equal adjacent planes on every third ray
+    (a plateau: the voxels between them score the same)."""
+    rng = np.random.RandomState(seed)
+    S = rng.randn(n, D).astype(np.float32)
+    S[::3, 1] = S[::3, 0]
+    return torch.softmax(torch.as_tensor(S, device=device), dim=-1)
+
+
+def _check_voxel_depth(depth, counts, bbox, rs, re, S, center, grid, M):
+    """K3's voxel-depth mode against its plain version (see the module
+    docstring for the tolerances)."""
+    ref_depth, ref_counts = vd.voxel_argmax_depth_reference(
+        bbox, rs, re, S, center, grid, M)
+    assert torch.equal(counts, ref_counts)
+    assert torch.equal(depth > 0, ref_depth > 0)
+    close = (depth - ref_depth).abs() <= 1e-3 * ref_depth.abs()
+    assert float(close.float().mean()) >= 0.999
+    # every other ray at a voxel the plain version scores as tied
+    _, vox, _, S_vox = vd.plain_voxel_scores(bbox, rs, re, S, grid, M)
+    # the distances as the plain version computes them
+    dists = vd.distance_to(rm.voxel_centers(vox, bbox, grid).reshape(-1, 3),
+                           center).reshape(vox.shape[:2])
+    off = ~close
+    best = S_vox[off].max(dim=1, keepdim=True).values
+    tied = S_vox[off] >= best - 1e-5 * best.abs()
+    hit = (dists[off] - depth[off, None]).abs() <= 1e-6 * dists[off]
+    assert bool((tied & hit).any(dim=1).all())
+    # zero-length segments that visit voxels: NaN scores, the first voxel
+    ray = re - rs
+    nan_rays = ((ray * ray).sum(1) == 0) & (ref_counts > 0)
+    torch.testing.assert_close(depth[nan_rays], dists[nan_rays, 0],
+                               rtol=1e-6, atol=0)
+    return int(nan_rays.logical_and(ref_counts > 1).sum())
+
+
+@pytest.mark.parametrize("D", [2, 8, 32, 128])
+@pytest.mark.parametrize("geometry, grid, M", GEOMETRIES)
+def test_voxel_depth_kernel_matches_plain(cuda, geometry, grid, M, D):
+    bbox, rs, re = _traversal_inputs(cuda, geometry)
+    S = _plane_scores(rs.shape[0], D, cuda)
+    center = bbox[:3] - torch.tensor([3.0, 4.0, 5.0], device=cuda)
+    vd.voxel_argmax_depth.launches = 0
+    rm.voxel_traversal_flat.launches = 0
+    depth, counts = vd.voxel_argmax_depth(bbox, rs, re, S, center, grid, M)
+    assert vd.voxel_argmax_depth.launches == 1
+    assert rm.voxel_traversal_flat.launches == 0
+    assert depth.dtype == torch.float32 and counts.dtype == torch.int32
+    n_nan = _check_voxel_depth(depth, counts, bbox, rs, re, S, center, grid,
+                               M)
+    if geometry == "zero" and M > 1:
+        assert n_nan > 0
+    if geometry == "misses":
+        assert not counts.any() and not depth.any()
+
+
+def test_voxel_depth_kernel_on_a_whole_image(cuda):
+    """All 200,000 rays of a 400x500 ring view in one launch (a ragged last
+    block), at the main path's D=32, M=384 and grid."""
+    grid, M = (128, 128, 64), 384
+    _, center, bbox, rs, re = _rig(cuda, shape=(400, 500))
+    S = _plane_scores(rs.shape[0], 32, cuda)
+    depth, counts = vd.voxel_argmax_depth(bbox, rs, re, S, center, grid, M)
+    _check_voxel_depth(depth, counts, bbox, rs, re, S, center, grid, M)
+    assert int(counts.max()) > 50
+
+
+def test_voxel_depth_kernel_rejects_what_it_cannot_take(cuda):
+    bbox, rs, re = _traversal_inputs(cuda, "faces")
+    n = rs.shape[0]
+    c = torch.zeros(3, device=cuda)
+    S = _plane_scores(n, 8, cuda)
+    with pytest.raises(ValueError, match="D <= 128"):
+        vd.voxel_argmax_depth(bbox, rs, re, _plane_scores(n, 129, cuda), c,
+                              (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="2 <= D"):
+        vd.voxel_argmax_depth(bbox, rs, re, S[:, :1].contiguous(), c,
+                              (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="float32"):
+        vd.voxel_argmax_depth(bbox, rs, re, S.double(), c, (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        vd.voxel_argmax_depth(bbox, rs, re, S.t().contiguous().t(), c,
+                              (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="camera_center"):
+        vd.voxel_argmax_depth(bbox, rs, re, S, c.cpu(), (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="S_planes"):
+        vd.voxel_argmax_depth(bbox, rs, re, S[:-1], c, (4, 4, 4), 8)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        vd.voxel_argmax_depth(bbox, rs, re, S, c, (2048, 1024, 1024), 8)
 
 
 def test_traversal_kernel_counts_equal_bp_sweep_counts(cuda):
@@ -334,8 +446,10 @@ def test_traversal_kernel_counts_equal_bp_sweep_counts(cuda):
                                torch.zeros(int(np.prod(grid)), device=cuda),
                                center, bbox, grid, M, PRIOR, "first")
     _, k3_counts = rm.voxel_traversal_flat(bbox, rs, re, grid, M)
+    _, depth_counts = vd.voxel_argmax_depth(bbox, rs, re, S, center, grid, M)
     torch.cuda.synchronize()
     assert torch.equal(k3_counts, counts)
+    assert torch.equal(depth_counts, counts)
 
 
 def test_traversal_kernel_rejects_what_it_cannot_take(cuda):
@@ -355,6 +469,9 @@ def test_traversal_kernel_rejects_what_it_cannot_take(cuda):
     (MultiViewCNNForwardPass, 1), (MultiViewCNNVoxelSpaceForwardPass, 2),
 ])
 def test_mvcnn_passes_on_the_card_match_the_cpu(cuda, cls, kernels):
+    """Whatever rays_batch, K1 once per reference image, and in the
+    voxel-space pass K3's voxel-depth mode once per image (no rows
+    mode)."""
     scene = RingScene(6, 36, 48, 400.0, angle_step=0.05)
     gp = type("GP", (), dict(
         depth_planes=8, neighbors=4, padding=PAD,
@@ -364,10 +481,12 @@ def test_mvcnn_passes_on_the_card_match_the_cpu(cuda, cls, kernels):
     model = FeatureExtractor("simple_cnn", seed=0, device=cuda)
     ps.plane_sweep_scores.launches = 0
     rm.voxel_traversal_flat.launches = 0
+    vd.voxel_argmax_depth.launches = 0
     fp = cls(model, gp, None, scene.image_shape, 700, device=cuda)
     gpu = np.stack(list(fp.forward_pass(scene, (0, 2, 1))))
-    assert ps.plane_sweep_scores.launches == 2 * 3
-    assert rm.voxel_traversal_flat.launches == (2 * 3 if kernels == 2 else 0)
+    assert ps.plane_sweep_scores.launches == 2
+    assert rm.voxel_traversal_flat.launches == 0
+    assert vd.voxel_argmax_depth.launches == (2 if kernels == 2 else 0)
     fp_cpu = cls(model, gp, None, scene.image_shape, 700, device="cpu")
     cpu = np.stack(list(fp_cpu.forward_pass(scene, (0, 2, 1))))
     assert np.array_equal(gpu > 0, cpu > 0)

@@ -188,9 +188,10 @@ print(len(mods))
 
 def test_kernel_sources_and_build_command():
     names = {p.name for p in cuda_build.sources()}
-    assert {"planesweep.cu", "bp_sweep.cu", "traversal.cu",
-            "march.cuh", "probe_tma_box.cu", "probe_tf32_dot.cu"} <= names
-    assert {"raynet_voxel_traversal", "raynet_probe_tma_box",
+    assert {"planesweep.cu", "bp_sweep.cu", "traversal.cu", "march.cuh",
+            "hat.cuh", "probe_tma_box.cu", "probe_tf32_dot.cu"} <= names
+    assert {"raynet_voxel_traversal", "raynet_voxel_argmax_depth",
+            "raynet_probe_tma_box",
             "raynet_probe_tf32_dot"} <= set(cuda_build.SIGNATURES)
     compiles, link = cuda_build.build_commands("/x/lib.so", nvcc="nvcc")
     # one nvcc per .cu source, then one link of their objects

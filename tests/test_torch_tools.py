@@ -39,8 +39,14 @@ N_IMG, ROWS_IMG, VISITS_IMG, CELLS_IMG = 1920000, 8787774, 58617680, 1048576
      776.9, 0.2319, "bytes"),
     (roofline.bp_sweep_cost("depth", N_IMG, D, VISITS_IMG, CELLS_IMG), 545.9,
      0.1629, "bytes"),
+    (roofline.voxel_traversal_cost(N_IMG, M, VISITS_IMG), 3002.9, 0.8964,
+     "bytes"),
+    (roofline.voxel_depth_cost(N, D, VISITS), 10.5, 0.0031, "bytes"),
+    (roofline.voxel_depth_cost(N_IMG, D, VISITS_IMG), 307.2, 0.0917,
+     "bytes"),
 ], ids=["K1", "K2-first", "K2-message", "K2-depth", "K3", "K1-image",
-        "K2-first-image", "K2-message-image", "K2-depth-image"])
+        "K2-first-image", "K2-message-image", "K2-depth-image", "K3-image",
+        "K3-depth", "K3-depth-image"])
 def test_roofline_reproduces_the_chip_smoke_bounds(cost, mb, bound_ms,
                                                    bound_by):
     assert round(cost.nbytes / 1e6, 1) == mb
