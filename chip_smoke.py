@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (raynet_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from ``raynet_tpu_torch/csrc`` and then, in
 order, every phase failing loudly (nonzero exit):
@@ -62,7 +62,12 @@ order, every phase failing loudly (nonzero exit):
    its "raw" diagonal matching a named rounding, then both modes on seeded
    random (128, 128) inputs within 2**-9 * (|x| @ |e|) of the float64
    product and within 2**-16 * (|x| @ |e|) of the plain version of the
-   rounding their diagonal named;
+   rounding their diagonal named; each probe's time split into host
+   microseconds and device milliseconds a call, beside its library
+   call's (``time_kernels.host_device_split``), P2 also at 1024^3; with
+   ``--parent DIR`` (another checkout of the repository), P2's products
+   ``torch.equal`` to those of its build from ``DIR``'s sources
+   (``probe_dma_align.dot_equal_to_build``);
 9. one more ``raynet`` pass at 1600x1200 under ``utils.profiling.trace``
    (``torch.profiler``): the device's busy and idle share over the pass
    and the five device operations with the most time. No module of JAX or
@@ -77,6 +82,7 @@ Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
 result.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -128,7 +134,12 @@ def write_restrepo_scene(scene, root):
     return root
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout: hold P2 against its build of "
+                         "P2, bit for bit")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -784,6 +795,19 @@ def main():
         "bound %.7f ms (%s)" % (p2_t["ms"], p2_t["plain_ms"],
                                 p2_t["library_ms"], p2_t["bound_ms"],
                                 p2_t["bound_by"]))
+    # each probe's time, split: host microseconds and device milliseconds
+    # a call, the kernel's and its library call's
+    for name in ("P1", "P2", "P2 1024"):
+        log("  %s split: %s; event window %.4f ms (library %.4f), bound "
+            "%.7f ms" % (name, time_kernels.format_rows([times[name]])[-1]
+                         .strip(), times[name]["ms"],
+                         times[name]["library_ms"], times[name]["bound_ms"]))
+    if args.parent:
+        csrc = os.path.join(args.parent, "raynet_tpu_torch", "csrc")
+        p2["parent_equal"] = probes.dot_equal_to_build(csrc, dev)
+        for label, same in p2["parent_equal"].items():
+            check(same, "P2 %s torch.equal to the build from %s"
+                  % (label, csrc))
 
     # 9. one raynet pass under the profiler
     log("== 9. trace of one raynet pass, %dx%d" % (W, H))
@@ -841,6 +865,9 @@ def main():
         out.update(extra)
         return out
 
+    def split(row):
+        return {k: row[k] for k in time_kernels.SPLIT_KEYS}
+
     kernels = [
         kernel("plane_sweep_scores", "planesweep.cu",
                "raynet_tpu/ops/pallas/planesweep.py:84",
@@ -870,12 +897,17 @@ def main():
                mode="voxel depth"),
         kernel("tma_box_rows", "probe_tma_box.cu",
                "tools/probe_dma_align.py:33",
-               probe_launches["tma_box_rows"], p1_err, times["P1"]),
+               probe_launches["tma_box_rows"], p1_err, times["P1"],
+               **split(times["P1"])),
         # the timed mode, rna, against its plain version
         kernel("tensor_core_dot", "probe_tf32_dot.cu",
                "tools/probe_dma_align.py:104",
                probe_launches["tensor_core_dot"],
-               p2["rna"]["max_abs_err_held"], times["P2"]),
+               p2["rna"]["max_abs_err_held"], times["P2"],
+               **split(times["P2"]),
+               n1024={k: times["P2 1024"][k] for k in (
+                   "ms", "bound_ms", "bound_by", "library_ms",
+                   *time_kernels.SPLIT_KEYS)}),
     ]
     # strict JSON: a NaN here raises
     print(json.dumps({"bp_sweep_modes": k2, "voxel_depth": k3_depth,

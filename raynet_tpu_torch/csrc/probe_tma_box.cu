@@ -6,28 +6,39 @@
 // :66). On the TPU the question was whether Mosaic's DMA takes a box at
 // unaligned offsets in the tiled dimensions; it forced pl.multiple_of(.., 8)
 // hints and alignment slack on K1. Here the question is the same for
-// Hopper's copy engine (the Tensor Memory Accelerator): one thread issues
-// cp.async.bulk.tensor.3d for the whole box at coordinates {0, y0, xg0},
-// the copy reports its bytes to an mbarrier in shared memory, and the
-// block waits on it before converting. The spec is
-// raynet_tpu_torch/tools/probe_dma_align.tma_box_rows_reference.
+// Hopper's copy engine (the Tensor Memory Accelerator): one thread of a
+// block issues cp.async.bulk.tensor.3d for the whole box at coordinates
+// {0, y0, xg0}, the copy reports its bytes to an mbarrier in shared memory,
+// and the block waits on it before converting. The box's shape and the one
+// copy of all of it are the probe's question and stay as they are. The
+// spec is raynet_tpu_torch/tools/probe_dma_align.tma_box_rows_reference.
 //
-// What bounds it on the card: launch latency. It copies the whole
+// What bounds it on the card: the host and the launch. It copies the whole
 // 49,152-byte box, but its output depends on 16,384 bytes of it; with the
 // 32,768 bytes written the function's bound is ~1.5e-5 ms at 3.35 TB/s,
 // far below the few microseconds a launch and one round trip to device
-// memory take.
-//
-// The tensor map is encoded on the host for each call (it holds the
-// source's address) through cuTensorMapEncodeTiled, reached with
-// cudaGetDriverEntryPoint so the library links no driver library. TMA
-// fills a box that leaves the tensor with zeros without an error, so the
-// wrapper rejects offsets outside the source; it also checks the 16-byte
-// alignment of the source's address that the map requires.
+// memory take. So the design cuts what each call costs around the copy:
+// - the tensor map (cuTensorMapEncodeTiled, reached with
+//   cudaGetDriverEntryPoint so the library links no driver library) is
+//   encoded once per (device, source address, WG, HF) and kept in a small
+//   cache: a map holds only the address, the dims and the strides, so a
+//   new tensor at the same address with the same shape gets the same map;
+// - the shared-memory limit is set once per device, from the device index
+//   the wrapper passes (no cudaGetDevice per call);
+// - four blocks each copy the box and convert a quarter of its selected
+//   rows, a thread 8 bf16 at a time: one 16-byte read of shared memory,
+//   two float4 stores. (One block converting all of them took 0.0028 ms
+//   on the device against 0.0018 ms for four, on an H100 80GB HBM3 at
+//   700 W; time_kernels --probes, PERF.md.)
+// TMA fills a box that leaves the tensor with zeros without an error, so
+// the wrapper rejects offsets outside the source; it also checks the
+// 16-byte alignment of the source's address that the map requires.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
 
 namespace {
 
@@ -37,10 +48,20 @@ constexpr int kBWG = 12;  // box x-groups
 constexpr int kNSub = 4;  // x-groups written out
 constexpr int kBoxBytes = kBWG * kBH * kC * 2;  // 49,152
 constexpr int kOutElems = kNSub * kBH * kC;      // (64, 128)
+constexpr int kChunks = kOutElems / 8;           // 8 bf16 (16 bytes) each
 constexpr int kThreads = 256;
+constexpr int kBlocks = 4;  // each copies the box, converts a quarter
+constexpr int kPerBlock = kChunks / kBlocks;
 // the box is the whole static shared-memory limit: dynamic shared memory,
 // with slack to align the destination to 128 bytes
 constexpr int kSmemBytes = kBoxBytes + 128;
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
 
 __global__ void __launch_bounds__(kThreads)
     tma_box_kernel(const __grid_constant__ CUtensorMap map,
@@ -87,11 +108,19 @@ __global__ void __launch_bounds__(kThreads)
 
   // the box lies in shared memory as (BWG, BH, 128) row-major, so the
   // selected rows are one contiguous run; bf16 -> f32 is exact: the bf16
-  // bits are the high half of the f32
-  const uint16_t* rows =
-      reinterpret_cast<const uint16_t*>(box) + (size_t)sub0 * kBH * kC;
-  for (int i = threadIdx.x; i < kOutElems; i += kThreads)
-    out[i] = __uint_as_float(static_cast<uint32_t>(rows[i]) << 16);
+  // bits are the high half of the f32. Block b converts chunks
+  // [b, b + 1) * kPerBlock.
+  const uint4* rows = reinterpret_cast<const uint4*>(box) +
+                      (size_t)sub0 * kBH * kC / 8;
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const int end = (blockIdx.x + 1) * kPerBlock;
+  for (int i = blockIdx.x * kPerBlock + threadIdx.x; i < end; i += kThreads) {
+    const uint4 v = rows[i];
+    out4[2 * i] = make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y),
+                              bf16_hi(v.y));
+    out4[2 * i + 1] = make_float4(bf16_lo(v.z), bf16_hi(v.z), bf16_lo(v.w),
+                                  bf16_hi(v.w));
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -119,19 +148,33 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-}  // namespace
+// The last few tensor maps encoded, replaced in turn. The wrapper's
+// caller may launch from several threads (ctypes releases the GIL), so
+// the cache and the per-device flags sit behind one mutex.
+struct MapEntry {
+  bool used;
+  int device;
+  const void* src;
+  int WG, HF;
+  CUtensorMap map;
+};
+constexpr int kCacheSize = 8;
+MapEntry map_cache[kCacheSize];
+int next_entry = 0;
+uint64_t smem_set = 0;  // bit d: the shared-memory limit is set on device d
+std::mutex cache_mutex;
 
-// src (WG, HF, 128) bf16 contiguous, 16-byte aligned; out (64, 128) f32.
-// The wrapper checks 0 <= y0 <= HF - 16, 0 <= xg0 <= WG - 12 and
-// 0 <= sub0 <= 8. Returns cudaGetLastError(), or 1000 + the CUresult of
-// cuTensorMapEncodeTiled when the map cannot be encoded (1000 + 500 when
-// the driver has no such entry point).
-extern "C" int raynet_probe_tma_box(const void* src, float* out, int WG,
-                                    int HF, int y0, int xg0, int sub0,
-                                    void* stream) {
-  if (WG < kBWG || HF < kBH || y0 < 0 || y0 > HF - kBH || xg0 < 0 ||
-      xg0 > WG - kBWG || sub0 < 0 || sub0 > kBWG - kNSub)
-    return (int)cudaErrorInvalidValue;
+// the map of (device, src, WG, HF) into *map: 0, or 1000 + the CUresult
+// of cuTensorMapEncodeTiled (1000 + 500 when the driver has no such entry
+// point). Called with cache_mutex held.
+int tensor_map(int device, const void* src, int WG, int HF, CUtensorMap* map) {
+  for (const MapEntry& m : map_cache) {
+    if (m.used && m.device == device && m.src == src && m.WG == WG &&
+        m.HF == HF) {
+      std::memcpy(map, &m.map, sizeof(CUtensorMap));
+      return 0;
+    }
+  }
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return 1000 + (int)CUDA_ERROR_NOT_FOUND;
   // innermost dimension first; strides of the outer two in bytes
@@ -140,28 +183,53 @@ extern "C" int raynet_probe_tma_box(const void* src, float* out, int WG,
   const cuuint32_t box[3] = {(cuuint32_t)kC, (cuuint32_t)kBH,
                              (cuuint32_t)kBWG};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUtensorMap map;
-  CUresult res = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(src), dims, strides, box,
                         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_NONE,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return 1000 + (int)res;
-  // the shared-memory limit is set once per device (bit d of the mask);
-  // two threads racing here only set it twice
-  static uint64_t smem_set = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !((smem_set >> dev) & 1)) {
-    err = cudaFuncSetAttribute(tma_box_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) smem_set |= uint64_t(1) << dev;
+  MapEntry& slot = map_cache[next_entry];
+  next_entry = (next_entry + 1) % kCacheSize;
+  slot.used = true;
+  slot.device = device;
+  slot.src = src;
+  slot.WG = WG;
+  slot.HF = HF;
+  std::memcpy(&slot.map, map, sizeof(CUtensorMap));
+  return 0;
+}
+
+}  // namespace
+
+// src (WG, HF, 128) bf16 contiguous, 16-byte aligned, on device `device`
+// (the current device); out (64, 128) f32, 16-byte aligned. The wrapper
+// checks 0 <= y0 <= HF - 16, 0 <= xg0 <= WG - 12 and 0 <= sub0 <= 8.
+// Returns cudaGetLastError(), or 1000 + the CUresult
+// of cuTensorMapEncodeTiled when the map cannot be encoded (1000 + 500
+// when the driver has no such entry point).
+extern "C" int raynet_probe_tma_box(const void* src, float* out, int WG,
+                                    int HF, int y0, int xg0, int sub0,
+                                    int device, void* stream) {
+  if (WG < kBWG || HF < kBH || y0 < 0 || y0 > HF - kBH || xg0 < 0 ||
+      xg0 > WG - kBWG || sub0 < 0 || sub0 > kBWG - kNSub || device < 0 ||
+      device >= 64)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  {
+    std::lock_guard<std::mutex> lock(cache_mutex);
+    const int err = tensor_map(device, src, WG, HF, &map);
+    if (err != 0) return err;
+    if (!((smem_set >> device) & 1)) {
+      const cudaError_t set = cudaFuncSetAttribute(
+          tma_box_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kSmemBytes);
+      if (set != cudaSuccess) return (int)set;
+      smem_set |= uint64_t(1) << device;
+    }
   }
-  tma_box_kernel<<<1, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+  tma_box_kernel<<<kBlocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       map, out, y0, xg0, sub0);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,7 @@ edited source rebuilds) and prints how long the build took. Each ``.cu``
 file is compiled by its own ``nvcc``, all started together, and the objects
 are then linked. A failed build raises; there is no fallback.
 """
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -51,13 +52,14 @@ SIGNATURES = {
     "raynet_voxel_argmax_depth": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),
-    "raynet_probe_tma_box": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "raynet_probe_tma_box": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "raynet_probe_tf32_dot": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(csrc=CSRC):
+    csrc = Path(csrc)
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def nvcc_path():
@@ -75,16 +77,16 @@ def nvcc_path():
     return str(Path(home) / "bin" / "nvcc")
 
 
-def build_commands(output, nvcc=None):
-    """The nvcc command lines that build the kernel library at ``output``:
-    one compile per ``.cu`` file (objects beside ``output``), which may
-    run together, then the link."""
+def build_commands(output, nvcc=None, csrc=CSRC):
+    """The nvcc command lines that build the kernel library of the sources
+    in ``csrc`` at ``output``: one compile per ``.cu`` file (objects beside
+    ``output``), which may run together, then the link."""
     nvcc = nvcc or nvcc_path()
-    output = Path(output)
+    output, csrc = Path(output), Path(csrc)
     compiles, objects = [], []
-    for cu in sorted(CSRC.glob("*.cu")):
+    for cu in sorted(csrc.glob("*.cu")):
         obj = output.with_name("%s.%s.o" % (output.stem, cu.stem))
-        compiles.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+        compiles.append([nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o",
                          str(obj), str(cu)])
         objects.append(str(obj))
     link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(output), *objects]
@@ -104,9 +106,9 @@ def _run_all(cmds):
                                % (p.returncode, " ".join(cmd), out, err))
 
 
-def source_hash():
+def source_hash(csrc=CSRC):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources():
+    for p in sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -118,11 +120,29 @@ build_seconds = None
 
 @functools.lru_cache(maxsize=None)
 def library():
-    """The loaded kernel library, built first if this source hash has no
-    build yet."""
+    """The loaded kernel library, built first into ``BUILD_ROOT/<hash>/``
+    if this source hash has no build yet."""
     global build_seconds
-    out_dir = BUILD_ROOT / source_hash()
+    lib, seconds = _load(CSRC, BUILD_ROOT / source_hash())
+    if seconds is not None:
+        build_seconds = seconds
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(csrc):
+    """The kernel library of another checkout's sources in ``csrc`` (for a
+    comparison), built first into ``BUILD_ROOT/other-<hash>/``: it reads
+    ``csrc`` and writes nothing there."""
+    csrc = Path(csrc)
+    return _load(csrc, BUILD_ROOT / ("other-" + source_hash(csrc)))[0]
+
+
+def _load(csrc, out_dir):
+    """(library, build seconds) of the sources in ``csrc`` built at
+    ``out_dir``; the seconds are None where that build already existed."""
     lib_path = out_dir / "libraynet_kernels.so"
+    seconds = None
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -130,13 +150,13 @@ def library():
         # never load a half-written library
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             tmp_lib = Path(tmp) / lib_path.name
-            compiles, link = build_commands(tmp_lib)
+            compiles, link = build_commands(tmp_lib, csrc=csrc)
             _run_all(compiles)
             _run_all([link])
             os.replace(tmp_lib, lib_path)
-        build_seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
         print(
-            "raynet_tpu_torch: built %s in %.1f s" % (lib_path, build_seconds),
+            "raynet_tpu_torch: built %s in %.1f s" % (lib_path, seconds),
             file=sys.stderr,
         )
     lib = ctypes.CDLL(str(lib_path))
@@ -144,7 +164,7 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return lib
+    return lib, seconds
 
 
 def check_tensor(op, name, t, dtype, shape=None):
@@ -171,3 +191,26 @@ def check(err, name):
 def stream_ptr(device):
     """The current CUDA stream of ``device`` as an integer handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def raw_stream(index):
+    """The current CUDA stream of device ``index`` as an integer handle,
+    as ``stream_ptr`` gives it, without building a ``torch.cuda.Stream``
+    (the call Triton's launcher makes)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def device_guard(index, current=None):
+    """A context that makes CUDA device ``index`` the current device:
+    ``torch.cuda.device(index)`` when another device is current
+    (``current``, by default the current device as the CUDA runtime reads
+    it), else a context that does nothing, so that a launch on the current
+    device pays for no switch."""
+    if current is None:
+        current = torch._C._cuda_getDevice()
+    if index == current:
+        return _SAME_DEVICE
+    return torch.cuda.device(index)

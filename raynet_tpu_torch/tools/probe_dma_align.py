@@ -19,7 +19,8 @@ an H100:
 
 needs a CUDA card and exits nonzero without one. It prints the report
 lines and exits 0 when every P1 case is exact and the P2 verdicts name a
-rounding.
+rounding. ``dot_equal_to_build`` holds P2 bit for bit against its build
+from another checkout's sources (``chip_smoke.py --parent``).
 """
 import argparse
 import sys
@@ -65,10 +66,6 @@ def _check_box_args(src, y0, xg0, sub0):
         raise ValueError("tma_box_rows: src must be bfloat16 (WG, HF, %d), "
                          "got %s %s" % (WIDTH, src.dtype, tuple(src.shape)))
     wg, hf, _ = src.shape
-    if not src.is_contiguous():
-        raise ValueError("tma_box_rows: src must be contiguous")
-    if src.data_ptr() % 16:
-        raise ValueError("tma_box_rows: src must be 16-byte aligned")
     # TMA fills a box that leaves the tensor with zeros, without an error
     if not (0 <= y0 <= hf - BH and 0 <= xg0 <= wg - BWG
             and 0 <= sub0 <= BWG - NSUB):
@@ -76,6 +73,11 @@ def _check_box_args(src, y0, xg0, sub0):
             "tma_box_rows: offsets (y0=%d, xg0=%d, sub0=%d) outside "
             "[0, %d] x [0, %d] x [0, %d]"
             % (y0, xg0, sub0, hf - BH, wg - BWG, BWG - NSUB))
+    if not src.is_contiguous():
+        raise ValueError("tma_box_rows: src must be contiguous")
+    if src.data_ptr() % 16:
+        raise ValueError("tma_box_rows: src must be 16-byte aligned")
+    return wg, hf
 
 
 def tma_box_rows_reference(src, y0, xg0, sub0):
@@ -93,19 +95,18 @@ def tma_box_rows(src, y0, xg0, sub0):
     must lie inside it and sub0 <= BWG - 4.
     """
     y0, xg0, sub0 = int(y0), int(xg0), int(sub0)
-    _check_box_args(src, y0, xg0, sub0)
-    if src.device.type == "cpu":
-        return tma_box_rows_reference(src, y0, xg0, sub0)
-    if src.device.type != "cuda":
+    wg, hf = _check_box_args(src, y0, xg0, sub0)
+    if not src.is_cuda:
+        if src.device.type == "cpu":
+            return tma_box_rows_reference(src, y0, xg0, sub0)
         raise ValueError("tma_box_rows: unsupported device %s" % src.device)
-    wg, hf, _ = src.shape
-    out = torch.empty((NSUB * BH, WIDTH), dtype=torch.float32,
-                      device=src.device)
+    out = src.new_empty((NSUB * BH, WIDTH), dtype=torch.float32)
+    index = src.get_device()
     lib = cuda_build.library()
-    with torch.cuda.device(src.device):
+    with cuda_build.device_guard(index):
         err = lib.raynet_probe_tma_box(
-            src.data_ptr(), out.data_ptr(), wg, hf, y0, xg0, sub0,
-            cuda_build.stream_ptr(src.device))
+            src.data_ptr(), out.data_ptr(), wg, hf, y0, xg0, sub0, index,
+            cuda_build.raw_stream(index))
     cuda_build.check(err, "raynet_probe_tma_box")
     tma_box_rows.launches += 1
     return out
@@ -143,12 +144,14 @@ def round_operand(x, rounding):
 
 
 def _check_dot_args(x, e):
-    for name, t in (("x", x), ("e", e)):
-        if t.dtype != torch.float32 or t.dim() != 2:
-            raise ValueError("tensor_core_dot: %s must be a float32 matrix, "
-                             "got %s %s" % (name, t.dtype, tuple(t.shape)))
-        if not t.is_contiguous():
-            raise ValueError("tensor_core_dot: %s must be contiguous" % name)
+    f32 = torch.float32
+    if x.dtype is not f32 or e.dtype is not f32 or x.dim() != 2 or (
+            e.dim() != 2):
+        for name, t in (("x", x), ("e", e)):
+            if t.dtype != f32 or t.dim() != 2:
+                raise ValueError(
+                    "tensor_core_dot: %s must be a float32 matrix, got %s %s"
+                    % (name, t.dtype, tuple(t.shape)))
     (m, k), (k2, n) = x.shape, e.shape
     if k != k2 or m % 16 or n % 8 or k % 8:
         raise ValueError("tensor_core_dot: (M, K) x (K, N) with M %% 16, "
@@ -157,6 +160,11 @@ def _check_dot_args(x, e):
     if x.device != e.device:
         raise ValueError("tensor_core_dot: x on %s, e on %s"
                          % (x.device, e.device))
+    if not x.is_contiguous():
+        raise ValueError("tensor_core_dot: x must be contiguous")
+    if not e.is_contiguous():
+        raise ValueError("tensor_core_dot: e must be contiguous")
+    return m, n, k
 
 
 def tensor_core_dot_reference(x, e, operand_rounding="none"):
@@ -168,6 +176,7 @@ def tensor_core_dot_reference(x, e, operand_rounding="none"):
 
 
 MODES = {"raw": "none", "rna": "tf32_rna"}
+_RNA = {"raw": 0, "rna": 1}  # the kernel's rna argument
 
 
 def tensor_core_dot(x, e, mode):
@@ -176,21 +185,22 @@ def tensor_core_dot(x, e, mode):
     f32 bits to the tensor cores as they are (the plain version: no
     rounding); "rna" converts each operand to TF32 first, to nearest with
     ties away (the plain version: "tf32_rna")."""
-    if mode not in MODES:
+    rna = _RNA.get(mode)
+    if rna is None:
         raise ValueError("tensor_core_dot: mode must be 'raw' or 'rna', "
                          "got %r" % (mode,))
-    _check_dot_args(x, e)
-    if x.device.type == "cpu":
-        return tensor_core_dot_reference(x, e, MODES[mode])
-    if x.device.type != "cuda":
+    m, n, k = _check_dot_args(x, e)
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return tensor_core_dot_reference(x, e, MODES[mode])
         raise ValueError("tensor_core_dot: unsupported device %s" % x.device)
-    (m, k), n = x.shape, e.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = x.new_empty((m, n))
+    index = x.get_device()
     lib = cuda_build.library()
-    with torch.cuda.device(x.device):
+    with cuda_build.device_guard(index):
         err = lib.raynet_probe_tf32_dot(
-            x.data_ptr(), e.data_ptr(), out.data_ptr(), m, n, k,
-            int(mode == "rna"), cuda_build.stream_ptr(x.device))
+            x.data_ptr(), e.data_ptr(), out.data_ptr(), m, n, k, rna,
+            cuda_build.raw_stream(index))
     cuda_build.check(err, "raynet_probe_tf32_dot")
     tensor_core_dot.launches += 1
     return out
@@ -238,6 +248,36 @@ def probe_f32_dot_truncation(device, mode="raw"):
         print("f32 dot (%s), diag(%s): %s"
               % (mode, label, dot_verdict(verdicts[label])))
     return verdicts
+
+
+# the shapes on which P2 is held against another build of itself: the
+# random inputs of chip_smoke.py and the card tests
+DOT_SHAPES = ((128, 128, 128), (48, 40, 24), (80, 40, 56), (1024, 1024, 1024))
+
+
+def dot_equal_to_build(csrc, device):
+    """Whether P2 as built from the sources in ``csrc`` (another checkout's
+    ``raynet_tpu_torch/csrc``, whose ``raynet_probe_tf32_dot`` takes the
+    same arguments) gives this build's products bit for bit
+    (``torch.equal``), on seeded random (M, K) x (K, N) inputs of each of
+    ``DOT_SHAPES`` in both modes: {"<mode> MxKxN": bool}."""
+    other = cuda_build.load_library(csrc)
+    rng = np.random.RandomState(3)
+    equal = {}
+    for m, k, n in DOT_SHAPES:
+        x = torch.as_tensor(rng.randn(m, k).astype(np.float32), device=device)
+        e = torch.as_tensor(rng.randn(k, n).astype(np.float32), device=device)
+        for mode, rna in _RNA.items():
+            mine = tensor_core_dot(x, e, mode)
+            theirs = torch.empty_like(mine)
+            with cuda_build.device_guard(x.get_device()):
+                err = other.raynet_probe_tf32_dot(
+                    x.data_ptr(), e.data_ptr(), theirs.data_ptr(), m, n, k,
+                    rna, cuda_build.raw_stream(x.get_device()))
+            cuda_build.check(err, "raynet_probe_tf32_dot (%s)" % csrc)
+            equal["%s %dx%dx%d" % (mode, m, k, n)] = bool(
+                torch.equal(mine, theirs))
+    return equal
 
 
 def run(variant, y0, xg0, sub0, src):

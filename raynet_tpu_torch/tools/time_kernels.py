@@ -6,28 +6,48 @@ set: V=5, D=32, F=32; one batch of ``--rays`` rays through the grid
 128x128x64 at M=384), it times K1 (plane sweep), K2 (BP sweep) in its
 first, message and depth modes, K3 (voxel traversal) in its rows mode
 ("K3") and its voxel-depth mode ("K3 depth"), P1 (TMA box copy, case D2)
-and P2 (f32 product on the tensor cores, "rna" mode, 128^3), and beside P1
-and P2 the one PyTorch call that computes the same. K1, K2 and K3 (both
-modes) are timed again on one whole image (the 1,920,000 rays of view 0,
-rows "... image"), as the passes launch them; K2 updates a message store
-in place, as the raynet pass does. Each time is the median over
-``--repeats`` CUDA-event runs of ``--iters`` launches each, per launch,
-after a warm-up. Bounds come from ``roofline`` with the
-counts of the rays at hand. ``chip_smoke.py`` takes its kernel times from
-``time_all`` with ``--iters 1 --repeats 7 --plain``.
+and P2 (f32 product on the tensor cores, "rna" mode, 128^3 and, row "P2
+1024", 1024^3), and beside P1 and P2 the one PyTorch call that computes
+the same. K1, K2 and K3 (both modes) are timed again on one whole image
+(the 1,920,000 rays of view 0, rows "... image"), as the passes launch
+them; K2 updates a message store in place, as the raynet pass does. Each
+time ("ms") is the median over ``--repeats`` CUDA-event runs of
+``--iters`` launches each, per launch, after a warm-up. Bounds come from
+``roofline`` with the counts of the rays at hand. ``chip_smoke.py`` takes
+its kernel times from ``time_all`` with ``--iters 1 --repeats 7
+--plain``.
+
+A CUDA-event window reads the device's time only when the host enqueues
+faster than the device works; for the probes, whose work is far below a
+launch, it reads the host. So the probes' rows also split their time,
+and their library call's, on a second line:
+
+- ``host_us``: host microseconds per call, ``time.perf_counter`` around
+  1,000 calls with no synchronisation inside the loop;
+- ``device_ms``: device milliseconds per call, the kernel's own intervals
+  (by name) in a ``torch.profiler`` trace of 100 calls; for the library
+  call, every device operation its calls launched; None ("-") when the
+  trace holds none.
+
+A call whose ``host_us`` is above its ``device_ms`` is bound by the host.
 
     python -m raynet_tpu_torch.tools.time_kernels [--rays 65536]
-        [--iters 10] [--repeats 5] [--plain]
+        [--iters 10] [--repeats 5] [--plain] [--probes] [--host-steps]
 
 ``--plain`` also times each plain PyTorch version on the card, on the
-batch only (K2's and K3's take ~0.1-0.3 s a batch). Needs a CUDA card and
+batch only (K2's and K3's take ~0.1-0.3 s a batch). ``--probes`` times
+only P1 and P2 (no rig). ``--host-steps`` also times each step of the
+probes' launch path on the host (``host_steps``). Needs a CUDA card and
 exits nonzero without one. The last line is a JSON object of the rows and
 the card.
 """
 import argparse
 import json
+import os
 import statistics
 import sys
+import tempfile
+import time
 import types
 
 import numpy as np
@@ -108,6 +128,66 @@ def time_ms(fn, iters=1, repeats=7, warmup=2):
     return statistics.median(times)
 
 
+HOST_CALLS = 1000
+DEVICE_CALLS = 100
+
+
+def host_us(fn, calls=HOST_CALLS, clock=time.perf_counter, sync=None):
+    """Host microseconds per call of ``fn``: ``clock`` around ``calls``
+    calls with no synchronisation inside the loop, after one call and a
+    ``sync`` (by default ``torch.cuda.synchronize``). Where the device
+    keeps up with the calls, the host sets the pace and this is what one
+    call costs it."""
+    sync = sync or torch.cuda.synchronize
+    fn()
+    sync()
+    t0 = clock()
+    for _ in range(calls):
+        fn()
+    t1 = clock()
+    sync()
+    return (t1 - t0) / calls * 1e6
+
+
+def kernel_device_ms(intervals, calls, name=None):
+    """Device milliseconds per call: the summed durations of the
+    ``profiling.device_intervals`` (name, start_us, end_us) whose name
+    holds ``name`` (every interval when ``name`` is None), over
+    ``calls``; None (not measured) when the trace holds no such
+    interval."""
+    spans = [end - start for n, start, end in intervals
+             if name is None or name in n]
+    return sum(spans) / calls / 1e3 if spans else None
+
+
+def device_ms(fn, name=None, calls=DEVICE_CALLS):
+    """Device milliseconds per call of ``fn``: ``calls`` calls traced with
+    ``utils.profiling.trace`` after one untraced call, read by
+    ``kernel_device_ms``: the kernels named ``name``, or every device
+    operation the calls launched."""
+    from ..utils import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = profiling.read_trace(os.path.join(tmp, profiling.TRACE_NAME))
+    return kernel_device_ms(profiling.device_intervals(events), calls, name)
+
+
+def host_device_split(kernel, library, name, host=host_us, device=device_ms):
+    """A probe's time split into host and device, beside its library
+    call's: {host_us, device_ms, library_host_us, library_device_ms}.
+    ``device`` reads the kernel by its ``name``, and every device
+    operation of the library call."""
+    return {"host_us": host(kernel), "device_ms": device(kernel, name),
+            "library_host_us": host(library),
+            "library_device_ms": device(library)}
+
+
 def box_rows_library(src, y0, xg0, sub0):
     """One PyTorch call computing P1's rows: the NSUB x-groups they come
     from, converted to float32 (as a (64, 128) view)."""
@@ -164,14 +244,42 @@ def _k2_rows(row, suffix, rig, rs, re, S, visits, n_cells):
             visits=visits, cells=n_cells, rays=n)
 
 
+SPLIT_KEYS = ("host_us", "device_ms", "library_host_us", "library_device_ms")
+# the probes' kernels, by the name a trace gives them
+P1_KERNEL, P2_KERNEL = "tma_box_kernel", "tf32_dot_kernel"
+N_DOT_LARGE = 1024
+
+
+def _row_timer(rows, iters, repeats, plain):
+    """``row(name, cost, kernel, reference, library=None, split=None,
+    **counts)`` appends to ``rows`` the timing of ``kernel`` alone and,
+    with ``split`` (the kernel's name in a trace), its host/device split
+    beside the library call's."""
+    def row(name, cost, kernel, reference, library=None, split=None,
+            **counts):
+        ms = time_ms(kernel, iters, repeats)
+        plain_ms = time_ms(reference, 1, 3, 1) if plain and reference else None
+        library_ms = time_ms(library, iters, repeats) if library else None
+        bound_ms, bound_by = roofline.bound(cost)
+        r = {"name": name, "ms": ms, "plain_ms": plain_ms,
+             "library_ms": library_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "nbytes": cost.nbytes, "counts": counts}
+        r.update(host_device_split(kernel, library, split) if split
+                 else dict.fromkeys(SPLIT_KEYS))
+        rows.append(r)
+    return row
+
+
 def time_all(rig, iters, repeats, plain):
     """Rows {name, ms, plain_ms, library_ms, bound_ms, bound_by, nbytes,
-    counts} of every kernel on ``rig``, on its batch and (K1, K2, K3) on
-    one whole image. ``plain_ms`` (median of 3 single calls) only with
-    ``plain``, on the batch; ``library_ms`` where one PyTorch call
-    computes the same function (P1: ``box_rows_library``; P2:
-    ``torch.matmul`` with TF32 allowed), else None. ``counts`` are the
-    counts the bound rests on."""
+    counts, host_us, device_ms, library_host_us, library_device_ms} of
+    every kernel on ``rig``, on its batch and (K1, K2, K3) on one whole
+    image, then the probes' (``time_probes``). ``plain_ms`` (median of 3
+    single calls) only with ``plain``, on the batch; ``library_ms`` where
+    one PyTorch call computes the same function (P1: ``box_rows_library``;
+    P2: ``torch.matmul`` with TF32 allowed), else None. ``counts`` are the
+    counts the bound rests on. The host/device split (``host_device_split``)
+    only for the probes, else None."""
     from ..ops.planesweep import plane_sweep_scores, plane_sweep_scores_reference
     from ..ops.ray_marching import (
         voxel_traversal_flat,
@@ -181,30 +289,10 @@ def time_all(rig, iters, repeats, plain):
         voxel_argmax_depth,
         voxel_argmax_depth_reference,
     )
-    from .probe_dma_align import (
-        CASES,
-        N_DOT,
-        box_source,
-        case_offsets,
-        tensor_core_dot,
-        tensor_core_dot_reference,
-        tma_box_rows,
-        tma_box_rows_reference,
-    )
 
-    dev = rig.features.device
     n = rig.n_rays
     rows = []
-
-    def row(name, cost, kernel, reference, library=None, **counts):
-        ms = time_ms(kernel, iters, repeats)
-        plain_ms = time_ms(reference, 1, 3, 1) if plain and reference else None
-        library_ms = time_ms(library, iters, repeats) if library else None
-        bound_ms, bound_by = roofline.bound(cost)
-        rows.append({"name": name, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "nbytes": cost.nbytes,
-                     "counts": counts})
+    row = _row_timer(rows, iters, repeats, plain)
 
     S, cells = plane_sweep_scores(*rig.ps_args, return_cells=True)
     f = rig.features
@@ -256,33 +344,100 @@ def time_all(rig, iters, repeats, plain):
     del depth_args
     _k2_rows(row, " image", rig, rs, re, S, visits, n_cells)
     del S, rs, re
-    src = box_source(dev)
-    offs = case_offsets(*CASES[-1])
+    return rows + time_probes(f.device, iters, repeats, plain)
+
+
+def time_probes(dev, iters, repeats, plain):
+    """The probes' rows (as ``time_all``'s, with the host/device split):
+    P1 on case D2 ("P1"); P2 in "rna" mode at
+    128^3 ("P2") and at 1024^3 ("P2 1024"), beside ``torch.matmul`` with
+    TF32 allowed."""
+    from . import probe_dma_align as probes
+
+    rows = []
+    row = _row_timer(rows, iters, repeats, plain)
+    src = probes.box_source(dev)
+    offs = probes.case_offsets(*probes.CASES[-1])
     row("P1", roofline.tma_box_cost(),
-        lambda: tma_box_rows(src, *offs),
-        lambda: tma_box_rows_reference(src, *offs),
-        lambda: box_rows_library(src, *offs))
+        lambda: probes.tma_box_rows(src, *offs),
+        lambda: probes.tma_box_rows_reference(src, *offs),
+        lambda: box_rows_library(src, *offs), split=P1_KERNEL)
 
     # P2 in "rna" mode, whose plain version is what the card computes
     rng = np.random.RandomState(0)
-    x, e = (torch.as_tensor(rng.randn(N_DOT, N_DOT).astype(np.float32),
-                            device=dev) for _ in range(2))
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        row("P2", roofline.tensor_core_dot_cost(N_DOT),
-            lambda: tensor_core_dot(x, e, "rna"),
-            lambda: tensor_core_dot_reference(x, e, "tf32_rna"),
-            lambda: torch.matmul(x, e))
+        for name, n in (("P2", probes.N_DOT), ("P2 1024", N_DOT_LARGE)):
+            x, e = (torch.as_tensor(rng.randn(n, n).astype(np.float32),
+                                    device=dev) for _ in range(2))
+            row(name, roofline.tensor_core_dot_cost(n),
+                lambda x=x, e=e: probes.tensor_core_dot(x, e, "rna"),
+                lambda x=x, e=e: probes.tensor_core_dot_reference(
+                    x, e, "tf32_rna"),
+                lambda x=x, e=e: torch.matmul(x, e), split=P2_KERNEL, n=n)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     return rows
 
 
+def host_steps(dev):
+    """Host microseconds (``host_us``) of each step of the probes' launch
+    path, alone: P2's checks, two ways to allocate its output
+    (``torch.empty``; ``x.new_empty``), two device guards
+    (``torch.cuda.device`` always; ``cuda_build.device_guard``),
+    the two ways to the current stream (a ``torch.cuda.Stream`` object;
+    ``cuda_build.raw_stream``), the bare ctypes launches of P2 and P1 with
+    their arguments ready, and each whole wrapper."""
+    from ..ops import cuda_build
+    from . import probe_dma_align as probes
+
+    lib = cuda_build.library()
+    n = probes.N_DOT
+    x = torch.randn((n, n), device=dev)
+    out = torch.empty_like(x)
+    src = probes.box_source(dev)
+    box_out = torch.empty((probes.NSUB * probes.BH, probes.WIDTH),
+                          device=dev)
+    offs = probes.case_offsets(*probes.CASES[-1])
+    stream = cuda_build.raw_stream(dev.index)
+    wg, hf = src.shape[:2]
+
+    def guard_always():
+        with torch.cuda.device(dev):
+            pass
+
+    def guard_if_needed():
+        with cuda_build.device_guard(dev.index):
+            pass
+
+    steps = {
+        "P2 checks": lambda: probes._check_dot_args(x, x),
+        "P2 output: torch.empty": lambda: torch.empty(
+            (n, n), dtype=torch.float32, device=dev),
+        "P2 output: x.new_empty": lambda: x.new_empty((n, n)),
+        "device guard: torch.cuda.device": guard_always,
+        "device guard: cuda_build.device_guard": guard_if_needed,
+        "stream: torch.cuda.current_stream": lambda: (
+            torch.cuda.current_stream(dev).cuda_stream),
+        "stream: cuda_build.raw_stream": lambda: cuda_build.raw_stream(
+            dev.index),
+        "P2 ctypes launch": lambda: lib.raynet_probe_tf32_dot(
+            x.data_ptr(), x.data_ptr(), out.data_ptr(), n, n, n, 1, stream),
+        "P2 wrapper": lambda: probes.tensor_core_dot(x, x, "rna"),
+        "P1 ctypes launch": lambda: lib.raynet_probe_tma_box(
+            src.data_ptr(), box_out.data_ptr(), wg, hf, *offs, dev.index,
+            stream),
+        "P1 wrapper": lambda: probes.tma_box_rows(src, *offs),
+    }
+    return {name: host_us(fn) for name, fn in steps.items()}
+
+
 def format_rows(rows):
-    """The rows of ``time_all`` as a table, one line each."""
-    def opt(v):
-        return "-" if v is None else "%.4f" % v
+    """The rows of ``time_all`` as a table, one line each; the host/device
+    split, where a row has it, on a second line."""
+    def opt(v, fmt="%.4f"):
+        return "-" if v is None else fmt % v
 
     lines = ["%-18s %9s %11s %-10s %7s %10s %10s" % (
         "kernel", "ms", "bound ms", "bound by", "share", "plain ms",
@@ -292,6 +447,13 @@ def format_rows(rows):
             r["name"], r["ms"], r["bound_ms"], r["bound_by"],
             100 * r["bound_ms"] / r["ms"], opt(r["plain_ms"]),
             opt(r["library_ms"])))
+        if r.get("host_us") is not None:
+            lines.append(
+                "%-18s host %s us, device %s ms; library host %s us, "
+                "device %s ms" % (
+                    "", opt(r["host_us"], "%.2f"), opt(r["device_ms"], "%.5f"),
+                    opt(r["library_host_us"], "%.2f"),
+                    opt(r["library_device_ms"], "%.5f")))
     return lines
 
 
@@ -302,19 +464,31 @@ def main(argv=None):
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--plain", action="store_true",
                     help="also time each kernel's plain PyTorch version")
+    ap.add_argument("--probes", action="store_true",
+                    help="time only the probes P1 and P2 (no rig)")
+    ap.add_argument("--host-steps", action="store_true",
+                    help="also time each step of the probes' launch path "
+                         "on the host")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_kernels: needs a CUDA card "
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    rig = kernel_rig(device, args.rays)
-    rows = time_all(rig, args.iters, args.repeats, args.plain)
+    if args.probes:
+        rows = time_probes(device, args.iters, args.repeats, args.plain)
+    else:
+        rig = kernel_rig(device, args.rays)
+        rows = time_all(rig, args.iters, args.repeats, args.plain)
     for line in format_rows(rows):
         print(line)
+    steps = host_steps(device) if args.host_steps else None
+    for name, us in (steps or {}).items():
+        print("host step %-40s %8.2f us" % (name, us))
     print(json.dumps({
         "rays": args.rays, "iters": args.iters, "repeats": args.repeats,
-        "device": torch.cuda.get_device_name(device), "kernels": rows}))
+        "device": torch.cuda.get_device_name(device), "kernels": rows,
+        "host_steps_us": steps}))
     return 0
 
 

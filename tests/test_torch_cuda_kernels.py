@@ -18,7 +18,10 @@ exact; K3's voxel-depth mode counts and zero masks exact, depth within
 1e-3 relative on >= 0.999 of the rays and every other ray at a voxel whose
 plain mapped score is within rtol 1e-5 of the ray's maximum (the plain
 version divides the scores by their total, which can merge two an ulp
-apart), zero-length rays at their first voxel; P1 equal to its plain version bit for bit; P2 within
+apart), zero-length rays at their first voxel; P1 equal to its plain
+version bit for bit, whichever sources it was called on before; P2 (up
+to 1024^3, on shapes that leave its block tiles partly empty, and on
+operands off 16-byte alignment) within
 2**-9 * (|x| @ |e|) of the float64 product (TF32 operands) and within
 2**-16 * (|x| @ |e|) of the float64 product of its rounded operands ("rna":
 only the f32 sums differ), its "rna" diagonal exact.
@@ -511,12 +514,43 @@ def test_tma_box_kernel_reads_the_sources_own_shape(cuda):
         assert torch.equal(got, probes.tma_box_rows_reference(src, *offs))
 
 
-@pytest.mark.parametrize("mode", ["raw", "rna"])
-@pytest.mark.parametrize("m, k, n", [(128, 128, 128), (48, 40, 24)])
-def test_tensor_core_dot_kernel_matches_plain(cuda, mode, m, k, n):
-    # the diagonal names the operand rounding; the random, non-symmetric
-    # product is then held to its plain version (rounded operands' products
-    # are exact in f32, only the sums round) and loosely to float64
+def test_tma_box_map_cache_serves_no_stale_map(cuda):
+    """The kernel keeps each tensor map by (device, address, WG, HF): two
+    calls on one source, a source of another shape, then the first again,
+    each give their own rows."""
+    a = probes.box_source(cuda, seed=1)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    b = torch.randn((57, 100, 128), generator=g).to(cuda, torch.bfloat16)
+    d2 = probes.case_offsets(*probes.CASES[-1])
+    for src, offs in ((a, d2), (a, (3, 5, 2)), (b, (13, 31, 5)), (a, d2),
+                      (b, (100 - probes.BH, 57 - probes.BWG, 8))):
+        got = probes.tma_box_rows(src, *offs)
+        assert torch.equal(got, probes.tma_box_rows_reference(src, *offs))
+
+
+def test_tma_box_source_reallocated_at_the_same_address(cuda):
+    """A source freed and another of the same shape allocated in its
+    place (the caching allocator hands the block back) gets the same map,
+    which holds only the address and the shape, and its own rows."""
+    shape = (probes.WG, probes.HF, probes.WIDTH)
+    offs = probes.case_offsets(*probes.CASES[-1])
+    first = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
+    first.copy_(probes.box_source("cpu", seed=1))
+    assert torch.equal(probes.tma_box_rows(first, *offs),
+                       probes.tma_box_rows_reference(first, *offs))
+    address = first.data_ptr()
+    del first
+    second = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
+    assert second.data_ptr() == address
+    second.copy_(probes.box_source("cpu", seed=2))
+    got = probes.tma_box_rows(second, *offs)
+    assert torch.equal(got, probes.tma_box_rows_reference(second, *offs))
+    assert not torch.equal(got, probes.tma_box_rows_reference(
+        probes.box_source(cuda, seed=1), *offs))
+
+
+def _dot_rounding(cuda, mode):
+    """The operand rounding that the kernel's diagonal names in ``mode``."""
     vals = torch.as_tensor((1 + np.arange(128) * 2.0 ** -13)
                            .astype(np.float32), device=cuda)
     diag = torch.diagonal(probes.tensor_core_dot(
@@ -525,17 +559,57 @@ def test_tensor_core_dot_kernel_matches_plain(cuda, mode, m, k, n):
     if mode == "rna":
         assert torch.equal(diag, probes.round_operand(vals, "tf32_rna"))
     assert roundings
+    return roundings[0]
+
+
+def _assert_dot_near_plain(got, x, e, rounding):
+    # rounded operands' products are exact in f32, only the sums round
+    scale = x.double().abs() @ e.double().abs()
+    err = (got.double() - x.double() @ e.double()).abs()
+    assert bool((err <= 2.0 ** -9 * scale).all())
+    ref = probes.tensor_core_dot_reference(x, e, rounding).double()
+    assert bool(((got.double() - ref).abs() <= 2.0 ** -16 * scale).all())
+
+
+@pytest.mark.parametrize("mode", ["raw", "rna"])
+@pytest.mark.parametrize("m, k, n", [(128, 128, 128), (48, 40, 24),
+                                     (80, 40, 56), (1024, 1024, 1024)])
+def test_tensor_core_dot_kernel_matches_plain(cuda, mode, m, k, n):
+    # the diagonal names the operand rounding; the random, non-symmetric
+    # product is then held to its plain version and loosely to float64
+    rounding = _dot_rounding(cuda, mode)
     rng = np.random.RandomState(m + n)
     x = torch.as_tensor(rng.randn(m, k).astype(np.float32), device=cuda)
     e = torch.as_tensor(rng.randn(k, n).astype(np.float32), device=cuda)
     probes.tensor_core_dot.launches = 0
     got = probes.tensor_core_dot(x, e, mode)
     assert probes.tensor_core_dot.launches == 1
-    scale = x.double().abs() @ e.double().abs()
-    err = (got.double() - x.double() @ e.double()).abs()
-    assert bool((err <= 2.0 ** -9 * scale).all())
-    ref = probes.tensor_core_dot_reference(x, e, roundings[0]).double()
-    assert bool(((got.double() - ref).abs() <= 2.0 ** -16 * scale).all())
+    _assert_dot_near_plain(got, x, e, rounding)
+
+
+@pytest.mark.parametrize("mode", ["raw", "rna"])
+@pytest.mark.parametrize("m, k, n", [(128, 128, 128), (80, 40, 56)])
+def test_tensor_core_dot_kernel_takes_operands_off_16_bytes(cuda, mode, m, k,
+                                                            n):
+    """Contiguous operands that start 4 bytes past a 16-byte boundary take
+    the kernel's 4-byte copies: the same product, bit for bit, as the same
+    values 16-byte aligned, and within the plain version's tolerances."""
+    rounding = _dot_rounding(cuda, mode)
+    rng = np.random.RandomState(m + n + 1)
+
+    def off_by_4(rows, cols):
+        flat = torch.empty(rows * cols + 1, device=cuda)
+        view = flat[1:].view(rows, cols)
+        view.copy_(torch.as_tensor(rng.randn(rows, cols).astype(np.float32)))
+        return view
+
+    x, e = off_by_4(m, k), off_by_4(k, n)
+    x16, e16 = x.clone(), e.clone()
+    assert x.data_ptr() % 16 == 4 and e.data_ptr() % 16 == 4
+    assert x16.data_ptr() % 16 == 0 and e16.data_ptr() % 16 == 0
+    got = probes.tensor_core_dot(x, e, mode)
+    assert torch.equal(got, probes.tensor_core_dot(x16, e16, mode))
+    _assert_dot_near_plain(got, x, e, rounding)
 
 
 def test_trace_holds_device_work(cuda, tmp_path):

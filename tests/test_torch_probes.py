@@ -5,8 +5,11 @@ interpret mode; the port's wrappers take their plain versions for CPU
 tensors. P1 must equal the JAX probe's expected rows bit for bit; P2 with
 no operand rounding must give a diagonal back exactly, as the JAX probe
 does in interpret mode. The operand roundings are held to numpy bit
-arithmetic written independently, ties included.
+arithmetic written independently, ties included. The Python around the
+kernels' launch is tested here too: which shapes P2 takes, the device
+guard, and ``time_kernels``' host/device split with fake clocks.
 """
+import contextlib
 import importlib.util
 from pathlib import Path
 
@@ -16,7 +19,9 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from raynet_tpu_torch.ops import cuda_build
 from raynet_tpu_torch.tools import probe_dma_align as tp
+from raynet_tpu_torch.tools import time_kernels
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -178,3 +183,98 @@ def test_wrappers_reject_what_the_kernels_cannot_take():
         tp.tensor_core_dot(x.double(), x, "raw")
     with pytest.raises(ValueError, match="unknown rounding"):
         tp.round_operand(x, "fp8")
+
+
+@pytest.mark.parametrize("m, k, n", [(16, 8, 8), (48, 40, 24), (80, 40, 56),
+                                     (128, 128, 128)])
+def test_tensor_core_dot_accepts_every_multiple_of_its_tile(m, k, n):
+    """M % 16, N % 8 and K % 8 zero, whatever the kernel's block tiles."""
+    x, e = torch.ones(m, k), torch.ones(k, n)
+    got = tp.tensor_core_dot(x, e, "raw")
+    assert got.shape == (m, n) and bool((got == k).all())
+
+
+@pytest.mark.parametrize("xs, es", [((40, 128), (128, 128)),
+                                    ((128, 128), (128, 60)),
+                                    ((128, 36), (36, 128)),
+                                    ((128, 128), (120, 128))],
+                         ids=["M", "N", "K", "K-mismatch"])
+def test_tensor_core_dot_rejects_shapes_off_its_tile(xs, es):
+    with pytest.raises(ValueError, match="M % 16"):
+        tp.tensor_core_dot(torch.zeros(xs), torch.zeros(es), "rna")
+
+
+def test_device_guard_switches_only_to_another_device():
+    assert isinstance(cuda_build.device_guard(1, current=1),
+                      contextlib.nullcontext)
+    assert cuda_build.device_guard(1, current=1) is (
+        cuda_build.device_guard(0, current=0))
+    switch = cuda_build.device_guard(1, current=0)
+    assert isinstance(switch, torch.cuda.device) and switch.idx == 1
+
+
+def test_host_us_reads_the_clock_around_the_calls():
+    ticks = iter([10.0, 10.5])
+    calls, syncs = [], []
+    us = time_kernels.host_us(lambda: calls.append(1), calls=100,
+                              clock=lambda: next(ticks),
+                              sync=lambda: syncs.append(len(calls)))
+    # one call and a sync before the clock starts, one sync after it stops
+    assert us == pytest.approx(0.5 / 100 * 1e6)
+    assert len(calls) == 101 and syncs == [1, 101]
+
+
+def test_kernel_device_ms_sums_the_named_intervals():
+    intervals = [("void tf32_dot_kernel<true, 4>(float*)", 0.0, 3.0),
+                 ("void tf32_dot_kernel<true, 4>(float*)", 10.0, 14.0),
+                 ("Memset (Device)", 4.0, 5.0),
+                 ("ampere_sgemm_128x64", 20.0, 26.0)]
+    assert time_kernels.kernel_device_ms(intervals, 2, "tf32_dot_kernel") == (
+        pytest.approx(0.0035))
+    assert time_kernels.kernel_device_ms(intervals, 2) == pytest.approx(
+        0.007)
+    assert time_kernels.kernel_device_ms(intervals, 2, "missing") is None
+
+
+def test_host_device_split_row_fields():
+    kernel, library = object(), object()
+    host = {kernel: 12.5, library: 20.0}
+    device = {(kernel, "tf32_dot_kernel"): 0.003, (library, None): 0.004}
+    split = time_kernels.host_device_split(
+        kernel, library, "tf32_dot_kernel", host=host.__getitem__,
+        device=lambda fn, name=None: device[fn, name])
+    assert split == {"host_us": 12.5, "device_ms": 0.003,
+                     "library_host_us": 20.0, "library_device_ms": 0.004}
+    assert tuple(split) == time_kernels.SPLIT_KEYS
+    rows = [{"name": "P2", "ms": 0.02, "bound_ms": 5.9e-5,
+             "bound_by": "bytes", "plain_ms": None, "library_ms": 0.018,
+             **split},
+            {"name": "K1", "ms": 0.17, "bound_ms": 0.018,
+             "bound_by": "operations", "plain_ms": None, "library_ms": None,
+             **dict.fromkeys(time_kernels.SPLIT_KEYS)}]
+    lines = time_kernels.format_rows(rows)
+    assert len(lines) == 4  # header, P2 and its split, K1
+    assert "host 12.50 us, device 0.00300 ms" in lines[2]
+    assert "library host 20.00 us, device 0.00400 ms" in lines[2]
+    # a trace that caught none of the library's work: not measured
+    rows[0]["library_device_ms"] = None
+    assert "library host 20.00 us, device - ms" in (
+        time_kernels.format_rows(rows)[2])
+
+
+def test_another_checkouts_build_goes_under_this_build_root(tmp_path,
+                                                            monkeypatch):
+    """``load_library`` reads another checkout's sources and builds them
+    into this tree's ``BUILD_ROOT/other-<hash>/``, writing nothing beside
+    those sources and leaving ``build_seconds`` to this package's build."""
+    (tmp_path / "kernel.cu").write_text("// another checkout's kernel\n")
+    loads = []
+    monkeypatch.setattr(cuda_build, "_load",
+                        lambda csrc, out: loads.append((csrc, out)) or (
+                            "library", 1.5))
+    monkeypatch.setattr(cuda_build, "build_seconds", None)
+    assert cuda_build.load_library(tmp_path) == "library"
+    assert loads == [(tmp_path, cuda_build.BUILD_ROOT / (
+        "other-" + cuda_build.source_hash(tmp_path)))]
+    assert [p.name for p in tmp_path.iterdir()] == ["kernel.cu"]
+    assert cuda_build.build_seconds is None
