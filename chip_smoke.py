@@ -70,13 +70,41 @@ order, every phase failing loudly (nonzero exit):
    (``probe_dma_align.dot_equal_to_build``);
 9. one more ``raynet`` pass at 1600x1200 under ``utils.profiling.trace``
    (``torch.profiler``): the device's busy and idle share over the pass
-   and the five device operations with the most time. No module of JAX or
-   of the JAX package may have been imported.
+   and the five device operations with the most time;
+10. the raynet pass with its messages in the host store
+   (``message_store.HostMessageStore``): (a) on phase 6's rig with
+   ``messages_device_budget`` lowered below its need, so that the store
+   is memmap files in float16 (737,280,000 entries an image, over 2**28):
+   launches exactly K1 2 and K2 8, ``staged_bytes`` equal to 2 *
+   bp_iterations copies of each image's float16 block, the depth maps
+   within rtol = atol = 1e-3 of phase 6's on >= 0.995 of the pixels (the
+   JAX package's float16 bar), the spill directory gone; (b) a ring of 16
+   images of 1600x1200, all reference views, at the default 40 GiB budget
+   (51.9 GB of messages, scores and segments; a 23.6 GB float16 store on
+   disk), its store chosen by size alone (fewer views, down to 14, the
+   first count over the budget, if the disk cannot hold 16); each with its
+   sweep wall time, bytes staged and host<->card GB/s, and (b) with the
+   host's available memory and free disk before and after;
+11. the evaluation layer on the 400x300 rig of phase 7 written with a
+   cube ``gt_mesh.obj`` of 20,172 triangles around the bbox: the GT
+   raycaster (``common.scene.mesh_depth_map``) on the card against the
+   CPU for both reference views (hit masks identical, depths within 1e-5
+   relative), its time there and at 1600x1200, beside the OctTree loop's
+   (timed on one column, scaled to the image); ``raynet_forward_torch``
+   (raynet), ``raynet_to_pcl_torch`` and ``raynet_compute_metrics_torch
+   ppmde accuracy completeness`` on the card, then the last two with
+   ``--device cpu`` on the same predictions and a copy of the scene holding
+   the CPU raycast's GT depth maps: the PLY files parse, their points agree
+   within rtol 1e-5, the printed means within 1e-4 relative; K3's rows
+   mode launched once through ``ops.backends.perform_ray_marching`` on
+   every ray of view 0, equal to its plain version. No module of JAX or of
+   the JAX package may have been imported.
 
 The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
 (``time_kernels.kernel_rig``, ``time_kernels.time_all``, ``roofline``).
-The last lines are a JSON summary of the passes, the probes and the trace,
-the kernels' JSON line (times, bounds, launches), and the card's name and
+The last lines are a JSON summary of the passes, the probes, the trace,
+the host store and the evaluation, the kernels' JSON line (times, bounds,
+launches; K3's rows mode counted in phase 11), and the card's name and
 power limit before the final JSON line ``{"ok": true, "device": ...}``.
 Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
@@ -85,6 +113,7 @@ result.
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -132,6 +161,375 @@ def write_restrepo_scene(scene, root):
                 'minz="%r" maxx="%r" maxy="%r" maxz="%r"/>\n</info>\n'
                 % tuple(float(v) for v in (*lo, *hi)))
     return root
+
+
+def write_cube_mesh(path, half, n):
+    """Write the surface of the cube [-half, half]^3 as an OBJ mesh, each
+    face an n x n grid of squares cut into two triangles; returns the
+    triangle count, 12 n^2."""
+    g = np.linspace(-half, half, n + 1)
+    a, b = (x.ravel() for x in np.meshgrid(g, g, indexing="ij"))
+    lines, faces, base = [], [], 0
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    k = (i * (n + 1) + j).ravel()
+    quads = np.stack([k, k + n + 1, k + n + 2, k + 1], axis=1)
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            xyz = np.insert(np.stack([a, b], axis=1), axis, sign * half,
+                            axis=1)
+            lines += ["v %r %r %r" % tuple(float(c) for c in p) for p in xyz]
+            q = quads + base + 1  # OBJ is 1-based
+            faces += [q[:, [0, 1, 2]], q[:, [0, 2, 3]]]
+            base += len(xyz)
+    faces = np.concatenate(faces)
+    lines += ["f %d %d %d" % tuple(f) for f in faces]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(faces)
+
+
+def host_memory_and_disk(path):
+    """(available host memory, free disk space under ``path``) in GB."""
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    available = int(info["MemAvailable"].split()[0]) * 1024
+    return available / 1e9, shutil.disk_usage(path).free / 1e9
+
+
+def run_in_spill_dir(fp, scene, views, counters):
+    """One pass of ``fp`` with the temporary files it makes in a directory
+    of their own; returns (depth maps, wall seconds, launches, the names
+    left in that directory afterwards)."""
+    with tempfile.TemporaryDirectory() as spill:
+        previous = tempfile.tempdir
+        tempfile.tempdir = spill
+        try:
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            maps = np.stack(list(fp.forward_pass(scene, views)))
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+        finally:
+            tempfile.tempdir = previous
+        left = os.listdir(spill)
+    return maps, wall, launches, left
+
+
+def staged_summary(fp, wall, n_views):
+    """The staged pass's numbers: wall, sweep wall (BP and depth sweeps),
+    bytes staged and host<->card GB/s over the sweeps."""
+    sweep = (fp.timer.totals["Message passing"]
+             + fp.timer.totals["Per-pixel depth estimation"])
+    out = {"views": n_views, "store": fp.message_store, "wall_s": wall,
+           "sweep_s": sweep, "staged_bytes": fp.staged_bytes,
+           "staged_gb_per_s": fp.staged_bytes / sweep / 1e9,
+           "phases_s": dict(fp.timer.totals)}
+    log("  store %s, wall %.3f s, sweeps %.3f s, staged %d bytes, %.2f GB/s"
+        % (out["store"], wall, sweep, fp.staged_bytes,
+           out["staged_gb_per_s"]))
+    for k, v in fp.timer.totals.items():
+        log("  phase %-28s %.3f s" % (k, v))
+    return out
+
+
+def phase_host_store(check, dev, model, gp, scene, device_maps, counters,
+                     expect):
+    """Phase 10: the raynet pass with its messages in the host store."""
+    from raynet_tpu_torch.common.ring_scene import RingScene
+    from raynet_tpu_torch.inference import RayNetForwardPass
+    from raynet_tpu_torch.tools.time_kernels import N_RAYS
+
+    H, W = scene.image_shape
+    M = int(gp.max_number_of_marched_voxels)
+    D = int(gp.depth_planes)
+    iters = RayNetForwardPass.bp_iterations
+    per_view = H * W * (M + D + 6) * 4  # messages, scores, segments
+    f16_block = H * W * M * 2
+    out = {}
+
+    log("== 10a. raynet through the host store: phase 6's rig, 2 reference "
+        "views, messages_device_budget lowered below their %d bytes"
+        % (2 * per_view))
+    fp = RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
+                           device=dev)
+    fp.messages_device_budget = 2 * per_view - 1
+    maps, wall, launches, left = run_in_spill_dir(fp, scene, (0, 2, 1),
+                                                  counters)
+    out["lowered_budget"] = staged_summary(fp, wall, 2)
+    # 1,920,000 x 384 = 737,280,000 entries an image, over 2**28: memmap;
+    # 2 images x 4 bytes x 737,280,000 over 1 GiB: float16
+    check(fp.message_store == "memmap", "store %s (expect memmap)"
+          % fp.message_store)
+    check(launches == expect, "launches %s (expect %s)" % (launches, expect))
+    # the first sweep downloads each image's (rays, M) float16 block, each
+    # of the bp_iterations - 1 message sweeps uploads and downloads it, the
+    # depth sweep uploads it: 2 * bp_iterations copies of each block
+    staged = 2 * iters * 2 * f16_block
+    check(fp.staged_bytes == staged, "staged_bytes %d = 2 * %d iterations "
+          "* 2 views * %d bytes" % (fp.staged_bytes, iters, f16_block))
+    close = float(np.isclose(maps, device_maps, rtol=1e-3, atol=1e-3).mean())
+    same_mask = bool(np.array_equal(maps > 0, device_maps > 0))
+    check(close >= 0.995, "depth maps against phase 6's device store: %.6f "
+          "within rtol = atol = 1e-3 (bar 0.995); zero masks identical: %s"
+          % (close, same_mask))
+    check(left == [], "spill directory removed (left: %s)" % (left,))
+    out["lowered_budget"].update(agreement=close, same_mask=same_mask)
+    del fp, maps
+
+    # 14 views of 1600x1200 are the first count over the 40 GiB budget
+    need = {n: n * per_view for n in (16, 15, 14)}
+    mem0, disk0 = host_memory_and_disk(tempfile.gettempdir())
+    fits = [n for n in (16, 15, 14) if n * f16_block < 0.9e9 * disk0]
+    log("== 10b. raynet through the host store at the default budget: a "
+        "ring of %s images of %dx%d, all reference views; host memory "
+        "available %.2f GB, disk free %.2f GB before"
+        % (fits[0] if fits else "(none fit)", W, H, mem0, disk0))
+    check(bool(fits), "a float16 store of 14-16 views (%.2f-%.2f GB) fits "
+          "the free disk %.2f GB" % (14 * f16_block / 1e9,
+                                     16 * f16_block / 1e9, disk0))
+    if not fits:
+        return out
+    n = fits[0]
+    ring = RingScene(n, H, W, 2750.0, seed=1)
+    fp = RayNetForwardPass(model, gp, None, ring.image_shape, N_RAYS,
+                           device=dev)
+    check(need[n] > fp.messages_device_budget, "%d views need %d bytes, over "
+          "the default budget %d" % (n, need[n], fp.messages_device_budget))
+    maps, wall, launches, left = run_in_spill_dir(fp, ring, (0, n, 1),
+                                                  counters)
+    mem1, disk1 = host_memory_and_disk(tempfile.gettempdir())
+    log("  host memory available %.2f GB, disk free %.2f GB after"
+        % (mem1, disk1))
+    out["default_budget"] = staged_summary(fp, wall, n)
+    out["default_budget"].update(host_gb_before=[mem0, disk0],
+                                 host_gb_after=[mem1, disk1])
+    check(fp.message_store == "memmap", "store %s chosen by size (expect "
+          "memmap)" % fp.message_store)
+    check(launches == {k: v * n // 2 for k, v in expect.items()},
+          "launches %s (K1 once per image, K2 once per image and sweep)"
+          % (launches,))
+    check(fp.staged_bytes == 2 * iters * n * f16_block,
+          "staged_bytes %d = 2 * %d iterations * %d views * %d bytes"
+          % (fp.staged_bytes, iters, n, f16_block))
+    nz = maps[maps > 0]
+    check(maps.shape == (n, H, W) and bool(np.isfinite(maps).all())
+          and nz.size > 0.1 * maps.size and nz.min() >= 10.0
+          and nz.max() <= 30.0,
+          "depth maps %s finite, nonzero share %.4f, in [10, 30]"
+          % (maps.shape, nz.size / maps.size))
+    check(left == [], "spill directory removed (left: %s)" % (left,))
+    return out
+
+
+def phase_evaluation(check, dev, small, scene, counters, expect):
+    """Phase 11: the GT raycaster on the card and the CPU; the forward,
+    point-cloud and metrics CLIs chained on the card over the 400x300 rig
+    with a GT mesh, and the point-cloud and metrics CLIs again on the CPU;
+    K3's rows mode through ``ops.backends``. Returns (summary, K3 rows
+    launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from raynet_tpu_torch.common.parse_input_data import (
+        parse_gt_mesh,
+        parse_stl_file_to_pointcloud,
+    )
+    from raynet_tpu_torch.common.scene import RestrepoScene, mesh_depth_map
+    from raynet_tpu_torch.ops import backends
+    from raynet_tpu_torch.ops.ray_marching import (
+        unflatten_voxel_indices,
+        voxel_traversal_flat_reference,
+    )
+    from raynet_tpu_torch.ops.sampling import segments_in_bbox
+    from raynet_tpu_torch.scripts import compute_metrics
+    from raynet_tpu_torch.scripts import convert_to_pointcloud
+    from raynet_tpu_torch.scripts import forward_pass as cli
+    from raynet_tpu_torch.tools.time_kernels import D, GRID, M, N_RAYS
+
+    h, w = small.image_shape
+    H, W = scene.image_shape
+    frames = (0, 1)
+    out = {}
+    log("== 11. evaluation: the GT raycaster, then raynet_forward_torch "
+        "(raynet), raynet_to_pcl_torch and raynet_compute_metrics_torch on "
+        "the %dx%d rig with a GT mesh" % (w, h))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_restrepo_scene(small, os.path.join(tmp, "data"))
+        scene_dir = os.path.join(data, "scene_1")
+        n_tris = write_cube_mesh(os.path.join(scene_dir, "gt_mesh.obj"),
+                                 3.0, 41)
+        tris = parse_gt_mesh(scene_dir)
+
+        # the GT raycaster on the card against the CPU, and its times (it
+        # returns numpy: its result is on the host)
+        def timed(fn):
+            t0 = time.perf_counter()
+            res = fn()
+            return res, time.perf_counter() - t0
+
+        mesh_depth_map(small.get_image(0).camera, h, w, tris[:1], dev)
+        gt_cpu, t_card, t_cpu = {}, [], []
+        for i in frames:
+            cam = small.get_image(i).camera
+            card_map, t = timed(lambda: mesh_depth_map(cam, h, w, tris, dev))
+            t_card.append(t)
+            gt_cpu[i], t = timed(lambda: mesh_depth_map(cam, h, w, tris,
+                                                        "cpu"))
+            t_cpu.append(t)
+            hit = gt_cpu[i] > 0
+            rel = float((np.abs(card_map - gt_cpu[i])[hit]
+                         / gt_cpu[i][hit]).max())
+            check(bool(np.array_equal(card_map > 0, hit)) and rel <= 1e-5,
+                  "GT depth map of view %d (%d triangles): card hit mask "
+                  "equal to the CPU's (%d hits), max relative depth "
+                  "difference %.3e (bar 1e-5)" % (i, n_tris, int(hit.sum()),
+                                                  rel))
+        gt_big, t_big = timed(lambda: mesh_depth_map(
+            scene.get_image(0).camera, H, W, tris, dev))
+        check(bool(np.isfinite(gt_big).all()) and (gt_big > 0).mean() > 0.1,
+              "GT depth map at %dx%d: %.4f of the pixels hit"
+              % (W, H, (gt_big > 0).mean()))
+        disk_scene = RestrepoScene(scene_dir, device="cpu")
+        t0 = time.perf_counter()
+        disk_scene._get_oct_tree()
+        t_tree = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        column = [disk_scene.get_depth_for_pixel(0, y, w // 2)
+                  for y in range(h)]
+        t_column = time.perf_counter() - t0
+        loop_est = t_column * w
+        check(sum(d is not None for d in column) > 0,
+              "the OctTree loop hits the mesh on column %d" % (w // 2))
+        log("  GT raycaster, %d triangles: %dx%d %s s on the card, %s s on "
+            "the CPU; %dx%d %.3f s on the card. OctTree loop: tree built in "
+            "%.3f s, one column of %d pixels in %.3f s, so %.1f s for %dx%d "
+            "(estimated from that column)"
+            % (n_tris, w, h, ["%.3f" % t for t in t_card],
+               ["%.3f" % t for t in t_cpu], W, H, t_big, t_tree, h, t_column,
+               loop_est, w, h))
+        out["raycast"] = {
+            "triangles": n_tris, "card_s_%dx%d" % (w, h): t_card,
+            "cpu_s_%dx%d" % (w, h): t_cpu, "card_s_%dx%d" % (W, H): t_big,
+            "octtree_build_s": t_tree,
+            "octtree_loop_s_%dx%d_estimated" % (w, h): loop_est}
+
+        # the chain on the card
+        pred = os.path.join(tmp, "pred")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cli.main([
+            data, pred, "--scene_idx", "0", "--forward_pass_factory",
+            "raynet", "--start_end", "0,2", "--depth_planes", str(D),
+            "--grid_shape", ",".join(str(g) for g in GRID),
+            "--maximum_number_of_marched_voxels", str(M),
+            "--rays_batch", str(N_RAYS), "--device", str(dev),
+        ])
+        out["forward_s"] = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        check(launches == expect, "forward CLI launches %s (expect %s)"
+              % (launches, expect))
+        # the CPU chain reads the same predictions, and the GT depth maps
+        # the CPU raycast above gave, from its own copy of the scene
+        cpu_data = os.path.join(tmp, "cpu_data")
+        shutil.copytree(data, cpu_data)
+        os.makedirs(os.path.join(cpu_data, "scene_1", "gt"))
+        for i in frames:
+            np.save(os.path.join(cpu_data, "scene_1", "gt",
+                                 "gt_depth_%d.npy" % (i,)), gt_cpu[i])
+        chains = {}
+        for label, device, root in (("card", str(dev), data),
+                                    ("cpu", "cpu", cpu_data)):
+            pcl = os.path.join(tmp, "pcl_" + label)
+            t0 = time.perf_counter()
+            convert_to_pointcloud.main([
+                root, pred, pcl, "--scene_idx", "0", "--frame_idxs", "0:2",
+                "--device", device])
+            t_pcl = time.perf_counter() - t0
+            met = os.path.join(tmp, "metrics_" + label)
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                compute_metrics.main([
+                    root, pred, "ppmde", "accuracy", "completeness",
+                    "--scene_idx", "0", "--frame_idxs", "0:2",
+                    "--output_directory", met, "--device", device])
+            t_met = time.perf_counter() - t0
+            means = {}
+            for line in printed.getvalue().splitlines():
+                log("  %s: %s" % (label, line))
+                if "mean=" in line:
+                    means[line.split(":")[0]] = float(
+                        line.split("mean=")[1].split()[0])
+            plys = {}
+            for path in (os.path.join(pcl, "pointcloud_s_0.ply"),
+                         os.path.join(met, "predicted_pc_s_0.ply"),
+                         os.path.join(met, "accuracy_colored_pc_s_0.ply"),
+                         os.path.join(met, "completeness_colored_pc_s_0.ply")):
+                pts = parse_stl_file_to_pointcloud(path)
+                plys[os.path.basename(path)] = pts
+                check(pts.ndim == 2 and pts.shape[1] == 3 and len(pts) > 0
+                      and bool(np.isfinite(pts).all()),
+                      "%s %s: %d finite points" % (label,
+                                                   os.path.basename(path),
+                                                   len(pts)))
+            log("  %s: raynet_to_pcl_torch %.3f s, "
+                "raynet_compute_metrics_torch %.3f s" % (label, t_pcl, t_met))
+            chains[label] = {"means": means, "to_pcl_s": t_pcl,
+                             "metrics_s": t_met, "plys": plys}
+        card, cpu = chains["card"], chains["cpu"]
+        check(sorted(card["means"]) == ["accuracy", "completeness", "ppmde"]
+              and bool(np.isfinite(list(card["means"].values())).all()),
+              "card metrics printed and finite: %s" % card["means"])
+        for k, v in card["means"].items():
+            ref = cpu["means"][k]
+            # the printout has 6 decimals
+            check(abs(v - ref) <= max(1e-4 * abs(ref), 1e-6),
+                  "%s mean %.6f on the card, %.6f on the CPU (within 1e-4 "
+                  "relative)" % (k, v, ref))
+        for name, pts in card["plys"].items():
+            other = cpu["plys"][name]
+            check(pts.shape == other.shape and bool(np.allclose(
+                pts, other, rtol=1e-5, atol=1e-6)),
+                "%s: card points %s equal the CPU's %s within rtol 1e-5"
+                % (name, pts.shape, other.shape))
+        out["metrics"] = {d: c["means"] for d, c in chains.items()}
+        out["seconds"] = {d: {"to_pcl": c["to_pcl_s"],
+                              "metrics": c["metrics_s"]}
+                          for d, c in chains.items()}
+
+        # K3's rows mode through ops.backends on every ray of view 0
+        im = small.get_image(0)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        bbox = f32(small.bbox.reshape(-1))
+        rs, re = segments_in_bbox(
+            torch.arange(h * w, dtype=torch.int32, device=dev),
+            f32(im.camera.P_pinv), f32(im.camera.center[:3, 0]), bbox, h)
+        starts, ends = rs.cpu().numpy(), re.cpu().numpy()
+        for c in counters.values():
+            c.launches = 0
+        vox, cnt = backends.perform_ray_marching(
+            RestrepoScene(scene_dir, device=dev), GRID, starts, ends, M)
+        rows_launches = {k: c.launches for k, c in counters.items()}
+        check(rows_launches == {k: int(k == "voxel_traversal_flat")
+                                for k in counters},
+              "ops.backends.perform_ray_marching launched K3's rows mode "
+              "once: %s" % (rows_launches,))
+        flat, pcnt = voxel_traversal_flat_reference(bbox, rs, re, GRID, M)
+        pvox = unflatten_voxel_indices(flat, GRID).to(torch.int32)
+        check(bool(np.array_equal(vox, pvox.cpu().numpy()))
+              and bool(np.array_equal(cnt, pcnt.cpu().numpy())),
+              "K3 rows through ops.backends: (%d, %d, 3) indices and counts "
+              "equal the plain version's (mean count %.2f)"
+              % (h * w, M, float(cnt.mean())))
+        out["k3_rows_rays"] = h * w
+    return out, rows_launches["voxel_traversal_flat"]
 
 
 def main(argv=None):
@@ -642,6 +1040,8 @@ def main(argv=None):
             log("  depth range [%.3f, %.3f]" % (nz.min(), nz.max()))
             check(nz.min() >= 10.0 and nz.max() <= 30.0,
                   "depths inside the ring's camera-to-bbox range [10, 30]")
+        if name == "raynet":
+            raynet_maps = allmaps  # phase 10 holds the host store to them
         del fp, maps, allmaps
 
         fp_k = cls(model, gp, None, small.image_shape, N_RAYS, device=dev)
@@ -843,6 +1243,18 @@ def main(argv=None):
               "top5_ms": {name: us / 1e3 for name, us in top}}
     del fp, maps, events
 
+    # 10. raynet with the messages in the host store
+    host_store = phase_host_store(
+        check, dev, model, gp, scene, raynet_maps, counters,
+        {k: passes[0][2].get(k, 0) for k in counters})
+    del raynet_maps
+
+    # 11. the evaluation CLIs on the card, and K3's rows mode through
+    # ops.backends
+    evaluation, rows_launches = phase_evaluation(
+        check, dev, small, scene, counters,
+        {k: passes[0][2].get(k, 0) for k in counters})
+
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "raynet_tpu"))
     check(not imported, "no JAX or raynet_tpu module imported %s" % imported)
@@ -882,11 +1294,11 @@ def main(argv=None):
                    k2["first"]["image"]["max_abs_err"],
                    k2["message"]["max_abs_err"]),
                times["K2 message"], times["K2 message image"]),
-        # K3 in its two modes: the rows mode is on no pass since the
-        # voxel-space pass takes the voxel-depth mode
+        # K3 in its two modes: the rows mode is launched by ops.backends
+        # (phase 11), the voxel-depth mode by the voxel-space pass
         kernel("voxel_traversal_flat", "traversal.cu",
                "raynet_tpu/ops/pallas/traversal.py:28",
-               total_launches["voxel_traversal_flat"], k3_err, times["K3"],
+               rows_launches, k3_err, times["K3"],
                times["K3 image"], mode="rows"),
         kernel("voxel_argmax_depth", "traversal.cu",
                "raynet_tpu/ops/pallas/traversal.py:28",
@@ -912,7 +1324,9 @@ def main(argv=None):
     # strict JSON: a NaN here raises
     print(json.dumps({"bp_sweep_modes": k2, "voxel_depth": k3_depth,
                       "passes": results,
-                      "probes": p2, "trace": traced}, allow_nan=False))
+                      "probes": p2, "trace": traced,
+                      "host_store": host_store, "evaluation": evaluation},
+                     allow_nan=False))
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(smi)
     print(json.dumps({"ok": True, "device": {

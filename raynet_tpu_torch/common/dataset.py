@@ -2,7 +2,7 @@
 
 Copy of ``raynet_tpu/common/dataset.py`` (Restrepo scenes mapped by
 alphabetical order; DTU scans by index; cache of 2 scenes with random
-eviction).
+eviction), plus the ``device`` its scenes run their tensor work on.
 """
 import os
 
@@ -12,11 +12,13 @@ from .scene import DTUScene, RestrepoScene
 
 
 class Dataset:
-    def __init__(self, dataset_directory, select_neighbors_based_on="filesystem"):
+    def __init__(self, dataset_directory, select_neighbors_based_on="filesystem",
+                 device="cuda"):
         self._dataset_directory = dataset_directory
         self._cache = {}
         self._max_cache_size = 2
         self._select_neighbors_based_on = select_neighbors_based_on
+        self._device = device
 
     @property
     def n_scenes(self):
@@ -36,8 +38,9 @@ class Dataset:
 
 
 class RestrepoDataset(Dataset):
-    def __init__(self, dataset_directory, select_neighbors_based_on="filesystem"):
-        super().__init__(dataset_directory, select_neighbors_based_on)
+    def __init__(self, dataset_directory, select_neighbors_based_on="filesystem",
+                 device="cuda"):
+        super().__init__(dataset_directory, select_neighbors_based_on, device)
         self._scene_mapping = dict(enumerate(self.scenes))
 
     def get_scene(self, scene_idx):
@@ -52,6 +55,7 @@ class RestrepoDataset(Dataset):
                     self._dataset_directory, self._scene_mapping[scene_idx]
                 ),
                 select_neighbors_based_on=self._select_neighbors_based_on,
+                device=self._device,
             )
         return self._cache[scene_idx]
 
@@ -62,9 +66,10 @@ class DTUDataset(Dataset):
         dataset_directory,
         illumination="max",
         select_neighbors_based_on="filesystem",
+        device="cuda",
     ):
         self._illumination = illumination
-        super().__init__(dataset_directory, select_neighbors_based_on)
+        super().__init__(dataset_directory, select_neighbors_based_on, device)
 
     @property
     def n_scenes(self):
@@ -78,5 +83,6 @@ class DTUDataset(Dataset):
                 scene_idx,
                 self._illumination,
                 select_neighbors_based_on=self._select_neighbors_based_on,
+                device=self._device,
             )
         return self._cache[scene_idx]

@@ -5,7 +5,8 @@ port's scenes call:
 - Restrepo ``scene_info.xml``: bbox attributes minx..maxz
 - DTU ``ObsMask*.mat``: bounding box under key "BB"
 - ascii PLY / OBJ ground-truth meshes -> (points, normals, face indices)
-The binary-PLY point-cloud reader comes with ``Scene.get_pointcloud``.
+- binary PLY (DTU STL exports, and the port's own point clouds) -> point
+  cloud, via a small header parser (``PLYHeader``)
 """
 import os
 import xml.etree.ElementTree as ET
@@ -88,3 +89,85 @@ def parse_gt_mesh(input_directory):
     """Ground-truth mesh as (T, 3, 3) triangles (vertex-major)."""
     points, _, faces = parse_gt_data(input_directory)
     return points[faces]  # (T, 3, 3)
+
+
+_PLY_TYPE_BYTES = {
+    "float": 4, "float32": 4, "uchar": 1, "uint8": 1, "int": 4, "int32": 4,
+    "double": 8, "float64": 8, "short": 2, "ushort": 2,
+}
+
+
+class PLYHeader:
+    """Minimal binary-PLY header reader (elements, properties, endianness)."""
+
+    class Element:
+        def __init__(self, name, count, properties):
+            self.name = name
+            self.count = count
+            self.properties = properties
+
+        @property
+        def bytes(self):
+            return sum(p.bytes for p in self.properties)
+
+    class Property:
+        def __init__(self, name, type_):
+            self.name = name
+            self.type = type_
+
+        @property
+        def bytes(self):
+            return _PLY_TYPE_BYTES[self.type]
+
+    def __init__(self, fileobj):
+        magic = fileobj.readline().strip()
+        if magic not in (b"ply", "ply"):
+            raise ValueError("not a PLY file")
+
+        lines = []
+        while True:
+            line = fileobj.readline()
+            if isinstance(line, bytes):
+                line = line.decode("ascii", "replace")
+            if "end_header" in line:
+                break
+            lines.append(line.strip())
+
+        _, fmt, version = lines[0].split()
+        self.is_ascii = "ascii" in fmt
+        self.little_endian = "little" in fmt
+        self.version = float(version)
+        self.comments = [
+            x.split(" ", 1)[1] for x in lines if x.startswith("comment")
+        ]
+
+        lines = [l for l in lines if not l.startswith("comment")]
+        elements = []
+        i = 1
+        while i < len(lines):
+            _, name, count = lines[i].split()
+            i += 1
+            props = []
+            while i < len(lines) and lines[i].startswith("property"):
+                _, type_, pname = lines[i].split()
+                props.append(self.Property(pname, type_))
+                i += 1
+            elements.append(self.Element(name, int(count), props))
+        self.elements = elements
+
+
+def parse_stl_file_to_pointcloud(stl_file):
+    """Binary-PLY point export (DTU's stl*_total.ply) -> (N, 3) points."""
+    with open(stl_file, "rb") as f:
+        header = PLYHeader(f)
+        el = header.elements[0]
+        if not all(p.type.startswith("float") for p in el.properties[:3]):
+            raise ValueError("%s: the first three vertex properties must be "
+                             "floats" % (stl_file,))
+
+        data = np.fromfile(f, dtype=np.uint8)[: el.count * el.bytes]
+        data = data.reshape(-1, el.bytes)
+        xyz_bytes = sum(p.bytes for p in el.properties[:3])
+        data = np.ascontiguousarray(data[:, :xyz_bytes]).ravel()
+        order = "<" if header.little_endian else ">"
+        return np.frombuffer(data.tobytes(), dtype=order + "f4").reshape(-1, 3)

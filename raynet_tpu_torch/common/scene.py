@@ -2,41 +2,74 @@
 
 Port of ``raynet_tpu/common/scene.py``: RestrepoScene (aerial: imgs/ +
 cams_krt/ + scene_info.xml, GT depth from cached gt/gt_depth_%d.npy or a
-per-pixel raycast of the GT mesh through an OctTree) and DTUScene
+batched first-hit raycast of the GT mesh, ``utils.raycast``, on the scene's
+``device``; the GT point cloud is the mesh's vertices) and DTUScene
 (Rectified/ images filtered by illumination, Calibration/cal18 P matrices
 decomposed via K^-1 P, ObsMask .mat bbox, npy GT depth maps re-expressed as
-camera-center ray distances).
-
-Not ported yet: the batched GT raycaster (the JAX package's
-``native.ray_mesh_first_hit``), so a Restrepo scene without cached GT depth
-maps takes the per-pixel loop; and ``get_pointcloud``, which comes with the
-point-cloud and metrics CLIs.
+camera-center ray distances, the STL point export as GT point cloud). The
+per-pixel OctTree raycast (``get_depth_for_pixel``) stays for single
+pixels.
 """
 import os
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 from .image import Image
 from .parse_input_data import (
+    parse_gt_data,
     parse_gt_mesh,
     parse_scene_info,
     parse_scene_info_dtu_dataset,
+    parse_stl_file_to_pointcloud,
 )
-from ..utils.generic_utils import get_voxel_grid
+from ..utils.generic_utils import get_voxel_grid, resolve_device
 from ..utils.geometry import distance, project
 from ..utils.oct_tree import OctTree
+from ..utils.raycast import ray_mesh_first_hit
 from ..utils.training_utils import (
     get_adjacent_frames_idxs,
     get_ray_meshes_first_intersection,
 )
 
 
+def mesh_depth_map(camera, height, width, triangles, device):
+    """(height, width) float32 distances from the camera centre to the
+    first triangle each pixel's ray hits, 0 where it hits none: the rays of
+    ``Image.rays`` (column-major), normalised in float64 and cast to
+    float32 as the JAX package's ``RestrepoScene.get_depth_map`` does, then
+    ``ray_mesh_first_hit`` on ``device``. ``camera`` needs ``P_pinv`` and
+    ``center``; ``triangles`` is (T, 3, 3)."""
+    device = resolve_device(device)
+    u = np.repeat(np.arange(width), height)
+    v = np.tile(np.arange(height), width)
+    pixels = np.stack([u, v, np.ones_like(u)]).astype(np.float64)
+    rays = project(camera.P_pinv, pixels)
+    center = camera.center
+    directions = rays[:, :3] - center[:3, 0][None]
+    directions = directions / np.linalg.norm(directions, axis=1,
+                                             keepdims=True)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    depths = ray_mesh_first_hit(
+        f32(center[:3, 0]), f32(directions), f32(triangles)
+    ).cpu().numpy()
+    return depths.reshape(width, height).T
+
+
 class Scene:
-    def __init__(self, select_neighbors_based_on="filesystem"):
+    """``device``: where the scene's own tensor work runs (the GT
+    raycast); checked when it is first used."""
+
+    def __init__(self, select_neighbors_based_on="filesystem",
+                 device="cuda"):
         self._voxel_grid = None
         self._camera_neighbors = None
         self._select_neighbors_based_on = select_neighbors_based_on
+        self.device = device
 
     @staticmethod
     def _load_sorted_files(basepath, subdir, condition=None):
@@ -121,11 +154,8 @@ class Scene:
         return None
 
     def get_pointcloud(self):
-        raise NotImplementedError(
-            "Scene.get_pointcloud is not ported to raynet_tpu_torch yet; it "
-            "comes with the point-cloud and metrics CLIs (ROADMAP.md, "
-            "'Still to port', item 2)"
-        )
+        """The ground-truth point cloud (a ``pointcloud.Pointcloud``)."""
+        raise NotImplementedError()
 
     def voxel_grid(self, grid_shape):
         if self._voxel_grid is None:
@@ -138,15 +168,18 @@ class Scene:
 class RestrepoScene(Scene):
     """Aerial (Restrepo) scene directory."""
 
-    def __init__(self, basepath, select_neighbors_based_on="filesystem"):
-        super().__init__(select_neighbors_based_on)
+    def __init__(self, basepath, select_neighbors_based_on="filesystem",
+                 device="cuda"):
+        super().__init__(select_neighbors_based_on, device)
         self._basepath = basepath
         self._image_paths = self._load_sorted_files(basepath, "imgs")
         self._cam_paths = self._load_sorted_files(basepath, "cams_krt")
         self._bbox_path = os.path.join(basepath, "scene_info.xml")
         self._bbox = None
         self._oct_tree = None
+        self._triangles = None
         self._cache = [None] * len(self._image_paths)
+        self._cache_depth_maps = [None] * len(self._image_paths)
 
     @property
     def n_images(self):
@@ -183,11 +216,22 @@ class RestrepoScene(Scene):
 
     def get_depth_map(self, i):
         """Full GT depth map: the cached gt/gt_depth_%d.npy when present,
-        else the per-pixel raycast of the GT mesh."""
+        else the first hits of every pixel's ray on the GT mesh
+        (``ray_mesh_first_hit`` on the scene's device; 0 where a ray hits
+        nothing), computed once per image."""
         f = self.get_depthmap_file(i)
         if f is not None:
             return np.load(f)
-        return super().get_depth_map(i)
+        if self._cache_depth_maps[i] is None:
+            self._cache_depth_maps[i] = self._raycast_depth_map(i)
+        return self._cache_depth_maps[i]
+
+    def _raycast_depth_map(self, i):
+        if self._triangles is None:
+            self._triangles = parse_gt_mesh(self._basepath)
+        h, w = self.image_shape
+        return mesh_depth_map(self.get_image(i).camera, h, w,
+                              self._triangles, self.device)
 
     def get_depthmap_file(self, i):
         if not self._has_gt_depth(i):
@@ -211,6 +255,13 @@ class RestrepoScene(Scene):
             self._oct_tree = OctTree(parse_gt_mesh(self._basepath))
         return self._oct_tree
 
+    def get_pointcloud(self):
+        """The GT mesh's vertices."""
+        from ..pointcloud import Pointcloud
+
+        points, _, _ = parse_gt_data(self._basepath)
+        return Pointcloud(points.T)
+
 
 class DTUScene(Scene):
     """DTU MVS scan."""
@@ -221,8 +272,9 @@ class DTUScene(Scene):
         scene_idx,
         illumination="max",
         select_neighbors_based_on="filesystem",
+        device="cuda",
     ):
-        super().__init__(select_neighbors_based_on)
+        super().__init__(select_neighbors_based_on, device)
         self._basepath = basepath
 
         image_paths = self._load_sorted_files(
@@ -253,6 +305,9 @@ class DTUScene(Scene):
             basepath,
             os.path.join("Depth", "scan%03d" % (scene_idx,)),
             lambda i: i.endswith("npy"),
+        )
+        self._gt_stl_path = os.path.join(
+            basepath, "Points/stl/stl%03d_total.ply" % (scene_idx,)
         )
 
         self._bbox = None
@@ -345,3 +400,9 @@ class DTUScene(Scene):
         )
         target_point = project(np.linalg.inv(T), p_cc)
         return distance(target_point[:-1], im.camera.center[:-1])
+
+    def get_pointcloud(self):
+        """The scan's STL point export."""
+        from ..pointcloud import Pointcloud
+
+        return Pointcloud(parse_stl_file_to_pointcloud(self._gt_stl_path).T)

@@ -16,8 +16,11 @@ voxel-depth mode). The raynet pass follows the reference schedule
    every reference view once (neither depends on the BP messages);
 3. runs ``bp_iterations`` message sweeps over all reference views against
    one shared voxel log-odds grid, reset to the prior log(g/(1-g)) at every
-   iteration, with the per-image messages kept on the device in float32,
-   (rays, M) in DDA order, and updated in place;
+   iteration, with the per-image messages (rays, M) in DDA order updated
+   in place in float32 on the device: kept there while they fit
+   ``messages_device_budget``, else kept in the host store
+   (``message_store``: float32 or float16 arrays, or memmap spill files)
+   and staged through the device one image at a time;
 4. runs one depth sweep and yields a ``(W, H).T`` depth map per view.
 
 On the card each of these sweeps is one kernel launch per image (K1 once
@@ -26,9 +29,10 @@ voxel-space pass, K2 once per image and sweep in the raynet pass); on the
 CPU the plain versions run ``rays_batch`` rays at a time.
 
 What the JAX package adds on top of this — beam/band planners, box classes,
-host staging, the plan prefetcher, the sharded scan and the VMEM retry —
-exists because Mosaic has no in-kernel gather, and is not ported.
+the plan prefetcher, the sharded scan and the VMEM retry — exists because
+Mosaic has no in-kernel gather, and is not ported.
 """
+import time
 import weakref
 from collections import OrderedDict
 
@@ -39,18 +43,9 @@ from ..models.feature_extractor import zeropad_images
 from ..ops import fused
 from ..ops.mrf import log_prior
 from ..ops.sampling import segments_in_bbox
+from ..utils.generic_utils import resolve_device
 from ..utils.profiling import PhaseTimer
-
-
-def resolve_device(device):
-    """torch.device for ``device``; a CUDA device without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device %s requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch path" % (device,)
-        )
-    return device
+from . import message_store
 
 
 class ForwardPass:
@@ -216,13 +211,34 @@ class MultiViewCNNVoxelSpaceForwardPass(_PerViewDepthPass):
 
 
 class RayNetForwardPass(ForwardPass):
-    """Full pipeline with MRF BP over all views (factory name: raynet)."""
+    """Full pipeline with MRF BP over all views (factory name: raynet).
+
+    The per-image messages stay on the device while they fit
+    ``messages_device_budget`` beside the scores and segments; over it they
+    live in the host store (``message_store.HostMessageStore``, the JAX
+    package's attributes and defaults below) and each image's block is
+    staged through the device for each sweep. The sizes alone choose, and
+    the pass records its choice in ``message_store``: "device",
+    "host_f32", "host_f16" or "memmap".
+    """
 
     bp_iterations = 3
-    # Device bytes the per-image messages and cached scores may take. Over
-    # it the pass raises: the host message store of the JAX package
-    # (f16 / memmap) is not ported yet, and nothing falls back silently.
+    # Device bytes the per-image messages, scores and segments may take.
+    # Over it the messages go to the host store (staged through two image
+    # blocks of float32 on the device, outside this budget); the scores and
+    # segments must still fit, or the pass raises.
     messages_device_budget = 40 << 30
+    # Host store dtype: None = float32 while the store takes at most
+    # messages_f16_threshold bytes in float32, float16 above it.
+    messages_dtype = None
+    messages_f16_threshold = 1 << 30
+    # Images with more entries than this spill to np.memmap files.
+    messages_memmap_threshold = 2 ** 28
+    # Bytes moved between the host store and the device, over all calls.
+    staged_bytes = 0
+    # The store the last call used: "device", "host_f32", "host_f16" or
+    # "memmap".
+    message_store = None
 
     def forward_pass(self, scene, images_range):
         """Yield one (H, W) float32 depth map per reference image of
@@ -245,15 +261,18 @@ class RayNetForwardPass(ForwardPass):
         ray_idxs = {
             i: self.get_valid_rays_per_image(scene, i) for i in ref_indices
         }
-        # per ray: the messages, the scores and the two segment endpoints
-        need = sum(len(r) * (M + D + 6) * 4 for r in ray_idxs.values())
-        if need > self.messages_device_budget:
+        rows = {i: len(r) for i, r in ray_idxs.items()}
+        # per ray: the scores and the two segment endpoints stay on the
+        # device; the messages too while everything fits
+        fixed = sum(n * (D + 6) * 4 for n in rows.values())
+        on_device = fixed + sum(rows.values()) * M * 4 \
+            <= self.messages_device_budget
+        if fixed > self.messages_device_budget:
             raise RuntimeError(
-                "the messages, scores and segments of %d views need %.2f GB "
-                "of device memory, over messages_device_budget = %.2f GB; run "
-                "fewer views per call (the host message store is not ported "
-                "yet)" % (len(ref_indices), need / 1e9,
-                          self.messages_device_budget / 1e9)
+                "the scores and segments of %d views need %.2f GB of device "
+                "memory, over messages_device_budget = %.2f GB; run fewer "
+                "views per call" % (len(ref_indices), fixed / 1e9,
+                                    self.messages_device_budget / 1e9)
             )
         common = dict(height=H, width=W, padding=gp.padding, depth_planes=D,
                       rays_batch=self.rays_batch)
@@ -262,29 +281,54 @@ class RayNetForwardPass(ForwardPass):
 
         for i in ref_indices:
             self._features_and_cameras(scene, i)
-        segments, scores = {}, {}
+        segments, scores, centers = {}, {}, {}
         with self.timer.phase("Plane sweep"):
             for i in ref_indices:
-                features, P, P_pinv, center = self._features_and_cameras(
+                features, P, P_pinv, centers[i] = self._features_and_cameras(
                     scene, i
                 )
                 idxs = torch.as_tensor(
                     np.ascontiguousarray(ray_idxs[i]), device=dev
                 )
                 segments[i] = segments_in_bbox(
-                    idxs, P_pinv, center, bbox, H
+                    idxs, P_pinv, centers[i], bbox, H
                 )
                 scores[i] = fused.raynet_image_scores(
                     *segments[i], features, P, **common,
                 )
+
+        def update(block, i, scatter_total, grid_acc, iteration):
+            fused.raynet_image_update(
+                block, scores[i], scatter_total, grid_acc, *segments[i],
+                centers[i], bbox, **bp, first_iteration=(iteration == 0),
+                prior=prior,
+            )
+
+        def depth(block, i, grid_acc):
+            return fused.raynet_image_depth(
+                block, scores[i], grid_acc, *segments[i], centers[i], bbox,
+                **bp,
+            )
+
+        def depth_map(i, depth):
+            out = np.zeros(H * W, dtype=np.float32)
+            out[ray_idxs[i]] = depth
+            return out.reshape(W, H).T
+
+        if not on_device:
+            depths = self._host_store_sweeps(
+                rows, M, grid_size, prior, update, depth)
+            for i in ref_indices:
+                yield depth_map(i, depths[i])
+            return
+
+        self.message_store = "device"
         # DDA order; a ray's count is the same in every sweep, so the
         # entries past it stay zero
         messages = {
-            i: torch.zeros((len(ray_idxs[i]), M), dtype=torch.float32,
-                           device=dev)
+            i: torch.zeros((rows[i], M), dtype=torch.float32, device=dev)
             for i in ref_indices
         }
-
         grid_acc = torch.full((grid_size,), prior, dtype=torch.float32,
                               device=dev)
         with self.timer.phase("Message passing"):
@@ -293,24 +337,54 @@ class RayNetForwardPass(ForwardPass):
                     (grid_size,), prior, dtype=torch.float32, device=dev
                 )
                 for i in ref_indices:
-                    center = self._features_and_cameras(scene, i)[3]
-                    fused.raynet_image_update(
-                        messages[i], scores[i], scatter_total, grid_acc,
-                        *segments[i], center, bbox, **bp,
-                        first_iteration=(iteration == 0), prior=prior,
-                    )
+                    update(messages[i], i, scatter_total, grid_acc, iteration)
                 grid_acc = scatter_total
 
         for i in ref_indices:
             with self.timer.phase("Per-pixel depth estimation"):
-                center = self._features_and_cameras(scene, i)[3]
-                depth = fused.raynet_image_depth(
-                    messages[i], scores[i], grid_acc, *segments[i], center,
-                    bbox, **bp,
-                ).cpu().numpy()
-            depth_map = np.zeros(H * W, dtype=np.float32)
-            depth_map[ray_idxs[i]] = depth
-            yield depth_map.reshape(W, H).T
+                d = depth(messages[i], i, grid_acc).cpu().numpy()
+            yield depth_map(i, d)
+
+    def _host_store_sweeps(self, rows, M, grid_size, prior, update, depth):
+        """The BP and depth sweeps with the messages in the host store;
+        returns {image: depths (rows,) float32}. The store, its spill files
+        included, is gone when this returns or raises."""
+        dev = self.device
+        order = list(rows)
+        dtype = message_store.host_messages_dtype(
+            self.messages_dtype, sum(rows.values()) * M,
+            self.messages_f16_threshold)
+        store = None
+        try:
+            with self.timer.phase("Message store set-up"):
+                store = message_store.HostMessageStore(
+                    rows, M, dtype, self.messages_memmap_threshold, dev)
+            self.message_store = store.kind
+            grid_acc = torch.full((grid_size,), prior, dtype=torch.float32,
+                                  device=dev)
+            # the first sweep writes the messages, a message sweep reads and
+            # writes them, the depth sweep only reads them
+            with self.timer.phase("Message passing"):
+                for iteration in range(self.bp_iterations):
+                    scatter_total = torch.full(
+                        (grid_size,), prior, dtype=torch.float32, device=dev
+                    )
+                    for i, block in store.blocks(order, upload=iteration > 0,
+                                                 download=True):
+                        update(block, i, scatter_total, grid_acc, iteration)
+                    grid_acc = scatter_total
+            with self.timer.phase("Per-pixel depth estimation"):
+                depths = {i: depth(block, i, grid_acc)
+                          for i, block in store.blocks(order, upload=True,
+                                                       download=False)}
+                return {i: d.cpu().numpy() for i, d in depths.items()}
+        finally:
+            if store is not None:
+                self.staged_bytes += store.staged_bytes
+                t0 = time.perf_counter()
+                store.close()
+                self.timer.add("Message store release",
+                               time.perf_counter() - t0)
 
 
 _FACTORIES = {

@@ -4,7 +4,7 @@ Port of ``raynet_tpu/ops/mrf.py:28-179``. Messages are "pon" log-quotients
 log(mu+ / mu-). The per-ray linear-time recurrences (eq. 13/14 of Ulusoy
 3DV'15) are masked exclusive cumprod / cumsum over the voxel budget M; the
 cross-ray reduction into the occupancy grid is ``index_add_``.
-``belief_propagation`` (training) is not ported yet.
+``belief_propagation`` (:183) runs every sweep over one batch of rays.
 """
 import torch
 
@@ -128,3 +128,29 @@ def depth_estimate(S, flat_idx, counts, messages_pon, grid_acc_flat):
     return torch.where(
         mask, s_new / total.clamp_min(1e-30), torch.zeros_like(s_new)
     )
+
+
+def belief_propagation(S, voxel_indices, counts, grid_shape, gamma=0.05,
+                       bp_iterations=3):
+    """Full multi-iteration BP over one batch of rays.
+
+    S: (N, M) per-voxel depth probabilities; voxel_indices: (N, M, 3)
+    visited voxel indices; counts: (N,); grid_shape: (D1, D2, D3); gamma:
+    occupancy prior. Every ray is visited once per sweep before the
+    accumulator swap. Returns (grid_acc (D1, D2, D3) accumulated pon
+    messages after the final sweep, messages_pon (N, M)).
+    """
+    from .ray_marching import flatten_voxel_indices
+
+    grid_shape = tuple(int(g) for g in grid_shape)
+    grid_size = grid_shape[0] * grid_shape[1] * grid_shape[2]
+    flat_idx = flatten_voxel_indices(voxel_indices, grid_shape)
+    prior = log_prior(torch.as_tensor(gamma, dtype=S.dtype, device=S.device))
+    # the first sweep: uniform prior and zero messages, nothing gathered
+    msgs, scatter = bp_update_first(S, flat_idx, counts, prior, grid_size)
+    grid_acc = scatter + prior
+    for _ in range(bp_iterations - 1):
+        msgs, scatter = bp_update(S, flat_idx, counts, msgs, grid_acc,
+                                  grid_size)
+        grid_acc = scatter + prior
+    return grid_acc.reshape(grid_shape), msgs

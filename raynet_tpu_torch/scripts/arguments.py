@@ -1,7 +1,8 @@
-"""The argparse groups ``raynet_forward_torch`` uses.
+"""The argparse groups the port's CLIs use.
 
 Same flag names, choices and defaults as ``raynet_tpu/scripts/arguments.py``
-(which imports the JAX training code, so the groups are repeated here).
+(which imports the JAX training code, so the groups are repeated here),
+plus ``--device``; ``build_dataset`` gives its scenes that device.
 """
 from ..common.dataset import DTUDataset, RestrepoDataset
 
@@ -152,6 +153,15 @@ def add_forward_pass_factory_related_arguments(parser):
     parser.add_argument("--rays_batch", type=int, default=130000)
 
 
+def add_metrics_related_arguments(parser):
+    parser.add_argument("--borders", default=40, type=int)
+    parser.add_argument("--truncate", default=float("inf"), type=float)
+    parser.add_argument("--min_distance", default=-1, type=float)
+    parser.add_argument("--consistency_threshold", default=0.75, type=float)
+    parser.add_argument("--n_neighbors", default=5, type=int)
+    parser.add_argument("--with_consistency_check", action="store_true")
+
+
 def add_device_arguments(parser):
     parser.add_argument(
         "--device", default="cuda",
@@ -161,14 +171,17 @@ def add_device_arguments(parser):
 
 
 def build_dataset(
-    type, dir, illumination_condition, select_neighbors_based_on="filesystem"
+    type, dir, illumination_condition, select_neighbors_based_on="filesystem",
+    device="cuda",
 ):
     if type.lower() == "dtu":
         return DTUDataset(
             dir,
             illumination_condition,
             select_neighbors_based_on=select_neighbors_based_on,
+            device=device,
         )
     return RestrepoDataset(
-        dir, select_neighbors_based_on=select_neighbors_based_on
+        dir, select_neighbors_based_on=select_neighbors_based_on,
+        device=device,
     )

@@ -69,6 +69,7 @@ def main(argv=None):
         args.dataset_directory,
         args.illumination_condition,
         args.select_neighbors_based_on,
+        device=args.device,
     )
     scene = dataset.get_scene(args.scene_idx)
 

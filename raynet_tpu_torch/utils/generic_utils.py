@@ -1,8 +1,22 @@
-"""Voxel-grid construction for the data layer.
+"""Voxel-grid construction for the data layer, and the device check of
+the port's entry points.
 
-Copy of ``raynet_tpu/utils/generic_utils.py::get_voxel_grid``.
+``get_voxel_grid`` is a copy of
+``raynet_tpu/utils/generic_utils.py::get_voxel_grid``.
 """
 import numpy as np
+import torch
+
+
+def resolve_device(device):
+    """torch.device for ``device``; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device %s requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path" % (device,)
+        )
+    return device
 
 
 def get_voxel_grid(bbox, grid_shape):

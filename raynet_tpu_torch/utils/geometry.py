@@ -2,7 +2,7 @@
 intersection.
 
 Copy of the functions of ``raynet_tpu/utils/geometry.py`` that the port's
-scenes, images and GT-mesh index call. Points are homogeneous column
+scenes, images, GT-mesh index and metrics call. Points are homogeneous column
 vectors unless stated otherwise. The tensor geometry of the forward pass is
 ``raynet_tpu_torch/ops/geometry.py``.
 """
@@ -68,3 +68,14 @@ def ray_triangles_intersection_mt(origin, destination, p0, p1, p2):
 def distance(p1, p2):
     """Euclidean distance between two column vectors."""
     return np.sqrt(np.sum((np.asarray(p1) - np.asarray(p2)) ** 2))
+
+
+def keep_points_in_aabbox(points, bbox_min, bbox_max):
+    """Filter a (3, N) point cloud to the points inside the box."""
+    if points.shape[0] != 3:
+        raise ValueError("keep_points_in_aabbox: points must be (3, N), got %s"
+                         % (points.shape,))
+    bbox_min = np.asarray(bbox_min).reshape(3, 1)
+    bbox_max = np.asarray(bbox_max).reshape(3, 1)
+    mask = np.all((points >= bbox_min) & (points <= bbox_max), axis=0)
+    return points[:, mask]

@@ -13,6 +13,7 @@ import shutil
 import numpy as np
 import pytest
 
+from raynet_tpu import native
 from raynet_tpu.common import dataset as jds
 from raynet_tpu.common import generation_parameters as jgp
 from raynet_tpu.common import scene as jsc
@@ -71,24 +72,29 @@ def test_restrepo_scene_matches_jax(mock_scene_dir, policy):
 
 
 def test_restrepo_depth_maps_match_jax(mock_scene_dir, tmp_path):
-    t = tsc.RestrepoScene(str(mock_scene_dir))
+    t = tsc.RestrepoScene(str(mock_scene_dir), device="cpu")
     j = jsc.RestrepoScene(str(mock_scene_dir))
     for y, x in ((H // 2 + 2, W // 2 + 3), (0, 0), (H - 1, W - 1), (3, 40)):
         assert t.get_depth_for_pixel(0, y, x) == j.get_depth_for_pixel(
             0, y, x)
-    # without a cached map both raycast the GT mesh; the JAX package's
-    # per-pixel loop is the port's path exactly
+    # the per-pixel loops of the two packages are the same
+    loop = tsc.Scene.get_depth_map(t, 1)
+    assert loop.shape == (H, W) and loop.dtype == np.float32
+    np.testing.assert_array_equal(loop, jsc.Scene.get_depth_map(j, 1))
+    # without a cached map both raycast the GT mesh in batch, the port with
+    # its float32 raycaster: the JAX package's native one exactly where it
+    # is built, its loop elsewhere up to rounding, except on the quad's
+    # shared diagonal, which the loop's float64 test rejects
     dm = t.get_depth_map(1)
     assert dm.shape == (H, W) and dm.dtype == np.float32
-    np.testing.assert_array_equal(dm, jsc.Scene.get_depth_map(j, 1))
     assert (dm > 0).mean() > 0.9 and 19.0 < dm.max() < 21.0
-    # the JAX package's float32 native raycaster: the same hits, up to its
-    # rounding, except on the quad's shared diagonal, which the strict
-    # Moeller-Trumbore test of the loop rejects
-    native = j.get_depth_map(1)
-    same = (dm > 0) == (native > 0)
+    batched = j.get_depth_map(1)
+    if native.is_available():
+        np.testing.assert_array_equal(dm > 0, batched > 0)
+        np.testing.assert_allclose(dm[dm > 0], batched[dm > 0], rtol=1e-6)
+    same = (dm > 0) == (loop > 0)
     assert same.mean() >= 0.95
-    np.testing.assert_allclose(dm[same & (dm > 0)], native[same & (dm > 0)],
+    np.testing.assert_allclose(dm[same & (dm > 0)], loop[same & (dm > 0)],
                                rtol=1e-5)
     # a cached gt/gt_depth_%d.npy wins in both
     scene_dir = tmp_path / "scene"
@@ -139,10 +145,18 @@ def test_datasets_match_jax(mock_scene_dir, dtu_root):  # noqa: F811
 
 
 def test_get_pointcloud_is_not_ported_yet(mock_scene_dir, dtu_root):  # noqa: F811
-    for scene in (tsc.RestrepoScene(str(mock_scene_dir)),
-                  tds.DTUDataset(str(dtu_root)).get_scene(SCAN)):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            scene.get_pointcloud()
+    """Ported now: the GT point clouds equal the JAX package's (the
+    Restrepo mesh's vertices, the DTU scan's STL export)."""
+    pairs = (
+        (tsc.RestrepoScene(str(mock_scene_dir)),
+         jsc.RestrepoScene(str(mock_scene_dir))),
+        (tds.DTUDataset(str(dtu_root)).get_scene(SCAN),
+         jds.DTUDataset(str(dtu_root)).get_scene(SCAN)),
+    )
+    for t, j in pairs:
+        pc = t.get_pointcloud().points
+        assert pc.shape[0] == 3 and pc.shape[1] > 0
+        np.testing.assert_array_equal(pc, j.get_pointcloud().points)
 
 
 def _same_params(a, b):
