@@ -46,7 +46,9 @@ order, every phase failing loudly (nonzero exit):
    voxel-depth mode 2; no other kernel), wall time, rays/s, phases, peak
    memory, the card's SM clock, temperature and power draw as it starts,
    and the depth maps' sanity (the timed pass follows one untimed pass of
-   its own, so it finds the caching allocator warm); then the same pass
+   its own, so it finds the caching allocator warm); five more walls, each
+   pass on an instance of its own, for the spread on this host; then the
+   same pass
    at 400x300 (focal scaled) on the card and, with the plain versions, on
    the CPU, whose depth maps must agree;
 7. the CLI (``raynet_tpu_torch.scripts.forward_pass.main``) with the
@@ -97,8 +99,35 @@ order, every phase failing loudly (nonzero exit):
    the CPU raycast's GT depth maps: the PLY files parse, their points agree
    within rtol 1e-5, the printed means within 1e-4 relative; K3's rows
    mode launched once through ``ops.backends.perform_ray_marching`` on
-   every ray of view 0, equal to its plain version. No module of JAX or of
-   the JAX package may have been imported.
+   every ray of view 0, equal to its plain version;
+12. the ``hartmann_fp`` pass (``get_forward_pass_factory("hartmann_fp")``)
+   with a ``HartmannModel`` at its published widths (32x32x3 patches,
+   32 / 64 / 2048 / 2048 / 2, seeded weights) on the rig of phase 7 cut to
+   200x150 (focal scaled), one reference view, 4 neighbours, D = 32
+   (960,000 quintuples; at 400x300 the phase took 85 s): wall
+   time, quintuples/s, phases, peak memory, the share of the float32 peak
+   its patch scoring reaches, the card's clock, temperature and power as
+   it starts, no port kernel launched; the scores of 1,024 rays of view 0
+   on the card against the CPU's (same weights, max abs diff <= 2e-5), their
+   argmax planes (>= 0.999 agree, or the card's plane ties the CPU's
+   maximum within rtol 1e-5); then ``raynet_forward_torch
+   --forward_pass_factory hartmann_fp --cnn_factory hartmann_cnn`` on the
+   rig on disk, its map within 1e-3 relative of the same pass's on >= 0.999
+   of the pixels;
+13. ``raynet_pretrain_torch`` (``scripts.pretrain_network.main``) on the
+   card in the ``default`` (simple_cnn, 10 view pairs of 11x11x3 patches,
+   D = 32, batch 32) and ``hartmann`` (32x32x3 quintuples, batch 32, SGD
+   with momentum 0.9) modes, 2 epochs x 5 steps, on the 400x300 rig with
+   phase 11's cube mesh as ground truth: steps/s, every loss finite, a run
+   resumed from epoch 1's checkpoint repeating the second epoch's losses,
+   the weight file of epoch 2 holding the trained CNN and mapped by
+   ``raynet_forward_torch --weight_file``; each epoch's seconds split into
+   waiting for samples and the steps themselves; then one training step of
+   each mode from the same state and batch on the card and on the CPU: loss
+   within rtol 1e-4, BatchNorm statistics within 1e-4 relative, and the
+   gradient's relative L2 distance to the CPU's within ``STEP_GRAD_BAR``,
+   which the same step with TF32 on must exceed. No module of JAX or of the
+   JAX package may have been imported.
 
 The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
 (``time_kernels.kernel_rig``, ``time_kernels.time_all``, ``roofline``).
@@ -113,6 +142,7 @@ result.
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -530,6 +560,419 @@ def phase_evaluation(check, dev, small, scene, counters, expect):
               % (h * w, M, float(cnt.mean())))
         out["k3_rows_rays"] = h * w
     return out, rows_launches["voxel_traversal_flat"]
+
+
+def hartmann_flops(patch_shape, views):
+    """Multiply-adds x 2 of one HartmannSimilarityNet quintuple: conv5(32)
+    and conv5(64) (each before a 2x2 pool) on every view, then the head's
+    conv5(2048), conv1(2048) and conv1(2) on the mean of the views."""
+    h, w, c = patch_shape
+    flops = 0
+    for out_c in (32, 64):
+        h, w = h - 4, w - 4
+        flops += views * h * w * out_c * 25 * c * 2
+        h, w, c = h // 2, w // 2, out_c
+    h, w = h - 4, w - 4
+    return flops + h * w * (2048 * 25 * 64 + 2048 * 2048 + 2 * 2048) * 2
+
+
+def card_state():
+    """The card's SM clock, temperature and power draw."""
+    return run(["nvidia-smi",
+                "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+                "--format=csv,noheader"])
+
+
+def phase_hartmann(check, dev, small, counters):
+    """Phase 12: the hartmann_fp pass on the card with a HartmannModel at
+    its published widths on the rig ``small``, its scores against the CPU's
+    on 1,024 rays, and the forward CLI's route (a
+    FeatureExtractor('hartmann_cnn'))."""
+    import torch
+
+    from raynet_tpu_torch.common.generation_parameters import (
+        GenerationParameters,
+    )
+    from raynet_tpu_torch.common.sampling_schemes import SamplingInBboxScheme
+    from raynet_tpu_torch.common.scene import RestrepoScene
+    from raynet_tpu_torch.inference import get_forward_pass_factory
+    from raynet_tpu_torch.models.feature_extractor import (
+        FeatureExtractor,
+        HartmannModel,
+    )
+    from raynet_tpu_torch.scripts import forward_pass as cli
+    from raynet_tpu_torch.tools.roofline import PEAK_F32_FLOPS
+
+    h, w = small.image_shape
+    D, V, patch = 32, 5, (32, 32, 3)
+    n_quint = h * w * D
+    out = {}
+    log("== 12. hartmann_fp on the card: HartmannModel (32x32x3 patches, "
+        "widths 32/64/2048/2048/2, seeded weights), the %dx%d rig, 1 "
+        "reference view, %d neighbours, D = %d: %d quintuples"
+        % (w, h, V - 1, D, n_quint))
+    gp = GenerationParameters(depth_planes=D, neighbors=V - 1,
+                              patch_shape=patch, padding=patch[0],
+                              sampling_type="sample_points_in_bbox")
+    scheme = SamplingInBboxScheme(gp)
+    flops = hartmann_flops(patch, V)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_restrepo_scene(small, os.path.join(tmp, "data"))
+        scene = RestrepoScene(os.path.join(data, "scene_1"), device=dev)
+        model = HartmannModel(seed=0, patch_shape=patch, device=dev)
+        factory = get_forward_pass_factory("hartmann_fp")
+        fp = factory(model, gp, scheme, scene.image_shape, device=dev)
+        torch.cuda.synchronize()
+        card = card_state()
+        log("  card before the pass (SM clock, temperature, power): " + card)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        (dm,) = list(fp.forward_pass(scene, (0, 1, 1)))
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        phases = dict(fp.timer.totals)
+        scoring = phases["Patch scoring"]
+        share = flops * n_quint / scoring / PEAK_F32_FLOPS
+        log("  wall %.3f s, %.0f quintuples/s; peak device memory %.2f GB; "
+            "chunk %d quintuples" % (wall, n_quint / wall, peak_gb,
+                                     fp.quintuples_per_call))
+        for k, v in phases.items():
+            log("  phase %-28s %.3f s" % (k, v))
+        log("  %d FLOP a quintuple; patch scoring at %.2f TFLOP/s, %.3f of "
+            "the f32 peak (%.0f TFLOP/s, TF32 off)"
+            % (flops, flops * n_quint / scoring / 1e12, share,
+               PEAK_F32_FLOPS / 1e12))
+        check(launches == dict.fromkeys(counters, 0),
+              "no port kernel on the hartmann path: launches %s" % launches)
+        check(dm.shape == (h, w) and bool(np.isfinite(dm).all())
+              and dm.min() > 0 and dm.max() <= 800,
+              "depth map %s finite in (0, 800], range [%.3f, %.3f]"
+              % (dm.shape, dm.min(), dm.max()))
+        out.update(wall_s=wall, quintuples=n_quint,
+                   quintuples_per_s=n_quint / wall, phases_s=phases,
+                   peak_device_gb=peak_gb, flops_per_quintuple=flops,
+                   quintuples_per_call=fp.quintuples_per_call,
+                   f32_peak_share=share, card_before=card)
+
+        # 1,024 rays of view 0 on the card and on the CPU, same weights
+        images = scene.get_image_with_neighbors(0, V - 1)
+        points = np.asarray(scheme.sample_points_across_rays(scene, 0))[:3]
+        rays = np.linspace(0, h * w - 1, 1024).astype(np.int64)
+        sub = np.ascontiguousarray(points[:, rays])
+        card_scores = fp.image_scores(images, sub).cpu().numpy()
+        cpu_model = HartmannModel(state_dict={
+            k: v.cpu() for k, v in model.model.state_dict().items()},
+            patch_shape=patch, device="cpu")
+        cpu_fp = factory(cpu_model, gp, scheme, scene.image_shape,
+                         rays_batch=4096, device="cpu")
+        t0 = time.perf_counter()
+        cpu_scores = cpu_fp.image_scores(images, sub).numpy()
+        t_cpu = time.perf_counter() - t0
+        err = float(np.abs(card_scores - cpu_scores).max())
+        # softmax probabilities from float32 convolutions summed over up to
+        # 2048 x 25 terms, in other orders on the card and on the CPU
+        check(err <= 2e-5, "scores of %d quintuples: card against CPU max "
+              "abs diff %.3e (bar 2e-5); CPU %.3f s"
+              % (card_scores.size, err, t_cpu))
+        cb, pb = card_scores.argmax(1), cpu_scores.argmax(1)
+        same = float((cb == pb).mean())
+        picked = cpu_scores[np.arange(len(cb)), cb]
+        tied = bool((picked >= cpu_scores.max(1) * (1 - 1e-5)).all())
+        check(same >= 0.999 or tied, "argmax planes agree on %.4f of the "
+              "rays (bar 0.999), or the card's plane ties the CPU's maximum "
+              "within rtol 1e-5: %s" % (same, tied))
+        d_rays = np.linalg.norm(points[:, rays, :][:, np.arange(len(cb)), cb].T
+                                - images[0].camera.center[:3, 0][None],
+                                axis=-1)
+        # the pass scored them in chunks of another size
+        ray_agree = rel_agreement(dm.T.reshape(-1)[rays],
+                                  np.minimum(d_rays, 800), 1e-3)
+        check(ray_agree >= 0.999, "the pass's depths of those rays are "
+              "their argmax planes' on %.4f of them" % ray_agree)
+        out.update(score_max_abs_err=err, argmax_agreement=same,
+                   cpu_s_1024_rays=t_cpu)
+
+        # the CLI's route: a FeatureExtractor('hartmann_cnn'), seed 0
+        pred = os.path.join(tmp, "pred")
+        t0 = time.perf_counter()
+        cli.main([data, pred, "--scene_idx", "0", "--forward_pass_factory",
+                  "hartmann_fp", "--cnn_factory", "hartmann_cnn",
+                  "--patch_shape", "32,32,3", "--start_end", "0,1",
+                  "--device", str(dev)])
+        t_cli = time.perf_counter() - t0
+        cli_map = np.load(os.path.join(pred, "depth_000.npy"))
+        fe_fp = factory(FeatureExtractor("hartmann_cnn", seed=0, device=dev),
+                        gp, scheme, scene.image_shape, device=dev)
+        t0 = time.perf_counter()
+        (ref,) = list(fe_fp.forward_pass(scene, (0, 1, 1)))
+        t_fe = time.perf_counter() - t0
+        agree = rel_agreement(cli_map, ref, 1e-3)
+        log("  CLI (FeatureExtractor route) %.3f s, the same pass %.3f s; "
+            "maps identical: %s" % (t_cli, t_fe,
+                                    bool(np.array_equal(cli_map, ref))))
+        check(cli_map.shape == (h, w) and agree >= 0.999,
+              "CLI depth map %s agrees with the pass called the same way: "
+              "%.6f within 1e-3 relative" % (cli_map.shape, agree))
+        out.update(cli_s=t_cli, feature_route_pass_s=t_fe,
+                   cli_agreement=agree)
+    return out
+
+
+def _epoch_rates(printed):
+    """Each epoch's (steps/s, seconds waiting for samples, seconds of the
+    steps, steps/s of the step alone) from the CLI's epoch lines."""
+    return [tuple(float(v) for v in m.groups()) for m in re.finditer(
+        r"\(([\d.]+) steps/s, .*?waiting for samples ([\d.]+) s, training "
+        r"steps ([\d.]+) s \(([\d.]+) steps/s", printed)]
+
+
+# The card's one-step gradient is held to the CPU's, ||g_card - g_cpu|| /
+# ||g_cpu|| at most STEP_GRAD_BAR[mode]. Readings on an H100 80GB HBM3 and
+# its machine's CPU: the step as the path runs it (TF32 off) 3.61e-4
+# (default) and 1.90e-6 (hartmann); the same step with TF32 on 3.74e-2 and
+# 3.07e-2. Each bar is 5-10x the first reading and lets the second fail.
+STEP_GRAD_BAR = {"default": 2e-3, "hartmann": 2e-5}
+
+
+def one_step_against_cpu(check, dev, mode):
+    """One training step of pretraining ``mode`` from the same state and
+    batch on the card and on the CPU: the losses, the BatchNorm statistics
+    and the gradients compared, the last against ``STEP_GRAD_BAR``. A
+    control runs the card's step with TF32 on and must exceed the bar.
+    Then the card's step alone on this batch is timed.
+    Per parameter it prints the gradient's norm, the card's and the TF32
+    control's relative distance to the CPU's, and, on the CPU, the float32
+    gradient's distance to the float64 one and the float64 gradient's move
+    when the inputs take float32-sized relative noise."""
+    import torch
+
+    from raynet_tpu_torch.models.losses import categorical_crossentropy, emd
+    from raynet_tpu_torch.train.pretrain import (
+        create_hartmann_pretrain_state,
+        create_pretrain_state,
+        make_pretrain_step,
+    )
+
+    rng = np.random.RandomState(0)
+    if mode == "default":
+        shape = (32, 10, 11, 11, 3)
+        args = (rng.rand(32, *shape).astype(np.float32),
+                rng.rand(32, *shape).astype(np.float32),
+                np.eye(32, dtype=np.float32)[rng.randint(0, 32, 32)])
+
+        def make(device):
+            model, state, loss_fn, wd = create_pretrain_state(
+                27, shape, device=device)
+            return model, state, make_pretrain_step(model, loss_fn, wd)[0]
+
+        def loss64(model, x1, x2, y):
+            return emd(y, model(x1.movedim(-1, -3),
+                                x2.movedim(-1, -3))).mean()
+    else:
+        args = (rng.rand(32, 5, 32, 32, 3).astype(np.float32),
+                np.eye(2, dtype=np.float32)[rng.randint(0, 2, 32)].reshape(
+                    32, 1, 1, 2))
+
+        def make(device):
+            return create_hartmann_pretrain_state(27, (32, 32, 3), lr=1e-3,
+                                                  device=device)
+
+        def loss64(model, p, y):
+            out = model(p.movedim(-1, -3)).permute(0, 2, 3, 1)
+            return categorical_crossentropy(y.reshape(32, -1),
+                                            out.reshape(32, -1)).mean()
+
+    def grads(model):
+        return {n: p.grad.detach().cpu().double()
+                for n, p in model.named_parameters()}
+
+    def step(device, tf32=False):
+        model, state, train = make(device)
+        # make() switched TF32 off on the card; the control turns it on
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            state, metrics = train(state, *args)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return (float(metrics["loss"]), grads(model),
+                {k: v.detach().cpu() for k, v in model.state_dict().items()
+                 if "running" in k})
+
+    def step64(inputs):
+        model = make("cpu")[0].double().train()
+        loss64(model, *(torch.as_tensor(a, dtype=torch.float64)
+                        for a in inputs)).backward()
+        return grads(model)
+
+    def step_alone_ms(n=20):
+        """The card's step on this batch, no sample producer running: the
+        mean of ``n`` steps after two, each ending in a read of its loss
+        as the CLI's do."""
+        model, state, train = make(dev)
+        for i in range(n + 2):
+            if i == 2:
+                t0 = time.perf_counter()
+            float(train(state, *args)[1]["loss"])
+        return (time.perf_counter() - t0) / n * 1e3
+
+    (lc, gc, sc), (lt, gt, _), (lp, gp_, sp) = (
+        step(dev), step(dev, tf32=True), step("cpu"))
+    alone = step_alone_ms()
+    g64 = step64(args)
+    noise = np.random.RandomState(1)
+    g64n = step64([args[0] * (1 + noise.uniform(-2.0 ** -24, 2.0 ** -24,
+                                                args[0].shape))]
+                  + list(args[1:]))
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def flat(g):
+        return torch.cat([v.reshape(-1) for v in g.values()])
+
+    log("  %s: per parameter, |g| on the CPU; relative distance of the "
+        "card's, of the TF32 control's, and of the CPU's float32 to float64; "
+        "float64 moved by input noise of 2^-24" % mode)
+    for n in gp_:
+        log("    %-20s %.3e  card %.3e  tf32 %.3e  f32-f64 %.3e  noise %.3e"
+            % (n, float(gp_[n].norm()), rel(gc[n], gp_[n]),
+               rel(gt[n], gp_[n]), rel(gp_[n], g64[n]), rel(g64n[n], g64[n])))
+    err, err_tf32 = rel(flat(gc), flat(gp_)), rel(flat(gt), flat(gp_))
+    serr = max([float(((sc[k] - sp[k]).abs() / (sp[k].abs() + 1e-2)).max())
+                for k in sp] or [0.0])
+    bar = STEP_GRAD_BAR[mode]
+    log("  %s: one step, card / CPU: loss %.7f / %.7f (TF32 %.7f); "
+        "gradient's relative distance to the CPU's %.3e (TF32 control "
+        "%.3e, bar %.1e); float32 to float64 on the CPU %.3e; BatchNorm "
+        "statistics max rel diff %.3e; the card's step alone on this batch "
+        "%.2f ms (%.1f steps/s)"
+        % (mode, lc, lp, lt, err, err_tf32, bar,
+           rel(flat(gp_), flat(g64)), serr, alone, 1e3 / alone))
+    check(abs(lc - lp) <= 1e-4 * abs(lp) and serr <= 1e-4 and err <= bar,
+          "%s: one step on the card against the CPU: loss within rtol 1e-4, "
+          "BatchNorm statistics within 1e-4 relative, gradient within %.1e "
+          "relative" % (mode, bar))
+    check(err_tf32 > bar, "%s: the TF32 control fails the gradient bar "
+          "(%.3e > %.1e)" % (mode, err_tf32, bar))
+    return {"step_loss": [lc, lp], "step_grad_rel_diff": err,
+            "step_grad_rel_diff_tf32": err_tf32,
+            "step_bn_max_rel_diff": serr, "step_alone_ms": alone}
+
+
+def phase_pretrain(check, dev, small):
+    """Phase 13: raynet_pretrain_torch on the card in the default and
+    hartmann modes, resumed from epoch 1's checkpoint, its weight files
+    read by raynet_forward_torch, and one step against the CPU's."""
+    import contextlib
+    import io
+
+    import torch
+
+    from raynet_tpu_torch.models.convert import (
+        hartmann_state_dict_from_flax,
+        read_flax_msgpack,
+        similarity_state_dict_from_flax,
+    )
+    from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
+    from raynet_tpu_torch.scripts import forward_pass as cli
+    from raynet_tpu_torch.scripts import pretrain_network as pretrain
+    from raynet_tpu_torch.scripts.experiments_utils import Metrics
+
+    h, w = small.image_shape
+    modes = {
+        "default": ["--patch_shape", "11,11,3", "--batch_size", "32"],
+        "hartmann": ["--input_output_dimensionality", "hartmann",
+                     "--patch_shape", "32,32,3", "--batch_size", "32",
+                     "--optimizer", "SGD", "--momentum", "0.9",
+                     "--step_depth", "4"],
+    }
+    out = {}
+    log("== 13. raynet_pretrain_torch on the card, %dx%d rig with a cube GT "
+        "mesh, D = 32, 4 neighbours, 2 epochs x 5 steps" % (w, h))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_restrepo_scene(small, os.path.join(tmp, "data"))
+        write_cube_mesh(os.path.join(data, "scene_1", "gt_mesh.obj"), 3.0, 41)
+        for mode, extra in modes.items():
+            flags = [data, data, None, "--device", str(dev), "--depth_planes",
+                     "32", "--neighbors", "4", "--steps_per_epoch", "5",
+                     "--training_cached_samples", "64", "--n_test_samples",
+                     "32"] + extra
+
+            def train(name, epochs, *more):
+                root = os.path.join(tmp, mode, name)
+                os.makedirs(root, exist_ok=True)
+                args = list(flags)
+                args[2] = root
+                printed = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    pretrain.main(args + ["--epochs", str(epochs), *more])
+                wall = time.perf_counter() - t0
+                (exp,) = [os.path.join(root, d) for d in os.listdir(root)
+                          if os.path.isdir(os.path.join(root, d))]
+                return exp, wall, printed.getvalue()
+
+            exp, wall, printed = train("full", 2)
+            losses = Metrics(os.path.join(exp, "train.txt"),
+                             os.path.join(exp, "val.txt")).train["loss"]
+            rates = _epoch_rates(printed)
+            log("  %s: %.3f s for the CLI; by epoch (steps/s, s waiting for "
+                "samples, s of the steps, steps/s of the step alone) %s; "
+                "losses %s" % (mode, wall, rates,
+                               ["%.6f" % v for v in losses]))
+            check(losses.shape == (10,) and bool(np.isfinite(losses).all())
+                  and len(rates) == 2,
+                  "%s: 10 finite losses, 2 epochs' rates" % mode)
+            cut, _, _ = train("cut", 1)
+            _, _, printed = train("cut", 2, "--resume", cut)
+            resumed = Metrics(os.path.join(cut, "train.txt"),
+                              os.path.join(cut, "val.txt")).train["loss"]
+            diff = float(np.abs(resumed[5:] - losses[5:]).max())
+            # cuDNN is held to deterministic algorithms: equal up to 1e-6
+            check("resumed from checkpoint after epoch 0" in printed
+                  and resumed.shape == (10,)
+                  and diff <= 1e-6 * float(np.abs(losses).max()),
+                  "%s: --resume from epoch 1's checkpoint reproduces the "
+                  "second epoch's losses (max abs diff %.3e)" % (mode, diff))
+            weights = os.path.join(exp, "weights", "weights.01.msgpack")
+            tree = read_flax_msgpack(weights)
+            fe_name = "hartmann_cnn" if mode == "hartmann" else "simple_cnn"
+            fe = FeatureExtractor.from_weights(fe_name, weights, device="cpu")
+            want = (hartmann_state_dict_from_flax(tree) if mode == "hartmann"
+                    else similarity_state_dict_from_flax(tree))
+            same = all(torch.equal(v, want["cnn." + k])
+                       for k, v in fe.model.state_dict().items()
+                       if "num_batches" not in k)
+            pred = os.path.join(tmp, mode, "pred")
+            cli.main([data, pred, "--scene_idx", "0", "--start_end", "0,1",
+                      "--forward_pass_factory",
+                      "hartmann_fp" if mode == "hartmann" else
+                      "multi_view_cnn", "--cnn_factory", fe_name,
+                      "--patch_shape", extra[extra.index("--patch_shape") + 1],
+                      "--depth_planes", "4" if mode == "hartmann" else "32",
+                      "--weight_file", weights, "--device", str(dev)])
+            dm = np.load(os.path.join(pred, "depth_000.npy"))
+            check(same and dm.shape == (h, w) and bool(np.isfinite(dm).all())
+                  and (dm > 0).mean() > 0.1,
+                  "%s: weights.01.msgpack holds the trained CNN and "
+                  "raynet_forward_torch --weight_file maps it (%s, nonzero "
+                  "%.4f)" % (mode, dm.shape, (dm > 0).mean()))
+            out[mode] = {"cli_s": wall,
+                         "steps_per_s": [r[0] for r in rates],
+                         "sample_wait_s": [r[1] for r in rates],
+                         "step_s": [r[2] for r in rates],
+                         "step_alone_per_s": [r[3] for r in rates],
+                         "losses": losses.tolist(), "resume_max_abs_diff":
+                         diff}
+
+    for mode in modes:
+        out[mode].update(one_step_against_cpu(check, dev, mode))
+    return out
 
 
 def main(argv=None):
@@ -1043,6 +1486,18 @@ def main(argv=None):
         if name == "raynet":
             raynet_maps = allmaps  # phase 10 holds the host store to them
         del fp, maps, allmaps
+        # five more walls, each of a pass with its features computed anew:
+        # the spread a single wall hides on a shared host
+        walls = []
+        for _ in range(5):
+            fp = cls(model, gp, None, scene.image_shape, N_RAYS, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            list(fp.forward_pass(scene, (0, 2, 1)))
+            walls.append(time.perf_counter() - t0)
+            del fp
+        log("  5 more walls: median %.4f s [%.4f-%.4f]"
+            % (float(np.median(walls)), min(walls), max(walls)))
 
         fp_k = cls(model, gp, None, small.image_shape, N_RAYS, device=dev)
         t0 = time.perf_counter()
@@ -1061,7 +1516,8 @@ def main(argv=None):
         check(agree >= 0.999,
               "400x300 depth agreement %.6f within 1e-3 relative" % agree)
         check(same_mask, "400x300 zero/nonzero masks identical")
-        results[name] = {"wall_s": wall, "rays_per_s": n_rays / wall,
+        results[name] = {"wall_s": wall, "more_walls_s": walls,
+                         "rays_per_s": n_rays / wall,
                          "peak_device_gb": peak_gb, "phases_s": phases,
                          "launches": launches, "agreement_400x300": agree,
                          "card_before": card}
@@ -1255,6 +1711,12 @@ def main(argv=None):
         check, dev, small, scene, counters,
         {k: passes[0][2].get(k, 0) for k in counters})
 
+    # 12. hartmann_fp, on phase 7's rig cut to 200x150; 13. pretraining
+    hartmann = phase_hartmann(
+        check, dev, RingScene(6, 150, 200, 2750.0 / 8, angle_origin=1,
+                              seed=0), counters)
+    pretraining = phase_pretrain(check, dev, small)
+
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "raynet_tpu"))
     check(not imported, "no JAX or raynet_tpu module imported %s" % imported)
@@ -1325,7 +1787,8 @@ def main(argv=None):
     print(json.dumps({"bp_sweep_modes": k2, "voxel_depth": k3_depth,
                       "passes": results,
                       "probes": p2, "trace": traced,
-                      "host_store": host_store, "evaluation": evaluation},
+                      "host_store": host_store, "evaluation": evaluation,
+                      "hartmann_fp": hartmann, "pretraining": pretraining},
                      allow_nan=False))
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(smi)

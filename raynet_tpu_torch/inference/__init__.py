@@ -1,5 +1,6 @@
 from .forward_pass import (  # noqa: F401
     ForwardPass,
+    HartmannForwardPass,
     MultiViewCNNForwardPass,
     MultiViewCNNVoxelSpaceForwardPass,
     RayNetForwardPass,

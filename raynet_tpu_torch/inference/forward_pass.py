@@ -1,15 +1,17 @@
 """Inference orchestration: the ``multi_view_cnn``,
-``multi_view_cnn_voxel_space`` and ``raynet`` forward passes.
+``multi_view_cnn_voxel_space``, ``raynet`` and ``hartmann_fp`` forward
+passes.
 
 Port of ``raynet_tpu/inference/forward_pass.py``: the ``ForwardPass`` base
 (:109-583), ``MultiViewCNNForwardPass`` (:587),
-``MultiViewCNNVoxelSpaceForwardPass`` (:621) and ``RayNetForwardPass``
-(:658). The first two compute each reference view's bbox segments once
-and its depths over all of its rays (``fused.mvcnn_image_depth``: the plane
-sweep and its argmax depth; ``fused.mvcnn_voxel_image_depth``: the plane
-sweep, then the voxel traversal, depth->voxel mapping and argmax in K3's
-voxel-depth mode). The raynet pass follows the reference schedule
-(raynet/forward_pass.py:579-748); for each call it
+``MultiViewCNNVoxelSpaceForwardPass`` (:621), ``RayNetForwardPass`` (:658)
+and ``HartmannForwardPass`` (:2001). The first two compute each reference
+view's bbox segments once and its depths over all of its rays
+(``fused.mvcnn_image_depth``: the plane sweep and its argmax depth;
+``fused.mvcnn_voxel_image_depth``: the plane sweep, then the voxel
+traversal, depth->voxel mapping and argmax in K3's voxel-depth mode). The
+raynet pass follows the reference schedule (raynet/forward_pass.py:579-748);
+for each call it
 
 1. computes the CNN features of every image it needs, once, cached per image;
 2. computes the bbox segments and the plane-sweep scores of every ray of
@@ -22,6 +24,8 @@ voxel-depth mode). The raynet pass follows the reference schedule
    (``message_store``: float32 or float16 arrays, or memmap spill files)
    and staged through the device one image at a time;
 4. runs one depth sweep and yields a ``(W, H).T`` depth map per view.
+
+The Hartmann pass scores patch quintuples instead (see its class).
 
 On the card each of these sweeps is one kernel launch per image (K1 once
 per image in every pass, K3's voxel-depth mode once per image in the
@@ -39,10 +43,11 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..common.image import gather_patches, padded_images
 from ..models.feature_extractor import zeropad_images
 from ..ops import fused
 from ..ops.mrf import log_prior
-from ..ops.sampling import segments_in_bbox
+from ..ops.sampling import get_sampling_scheme_op, segments_in_bbox
 from ..utils.generic_utils import resolve_device
 from ..utils.profiling import PhaseTimer
 from . import message_store
@@ -53,16 +58,18 @@ class ForwardPass:
     bounds the rays the plain versions take at a time on the CPU; on the
     card every kernel takes a whole image.
 
-    The arguments are the JAX package's, plus ``device``; the ported passes
-    sample along bbox segments and read neither ``sampling_scheme`` nor
-    ``image_shape`` (the scene gives the shape).
+    The arguments are the JAX package's, plus ``device``; the plane-sweep
+    passes sample along bbox segments and read no ``sampling_scheme`` (the
+    Hartmann pass does), and none reads ``image_shape`` (the scene gives
+    the shape).
     """
 
     def __init__(self, model, generation_params, sampling_scheme,
                  image_shape, rays_batch=50000, filter_out_rays=False,
                  device="cuda"):
-        del sampling_scheme, image_shape
+        del image_shape
         self.device = resolve_device(device)
+        self._sampling_scheme = sampling_scheme
         self._model = model
         self._generation_params = generation_params
         self.rays_batch = rays_batch
@@ -84,6 +91,49 @@ class ForwardPass:
                 self._scene_token = lambda s=scene: s
             self._feature_cache.clear()
             self._image_feature_cache.clear()
+
+    @staticmethod
+    def create_depth_map_from_distribution(
+        scene, img_idx, S, truncate=800, sampling_scheme="sample_in_bbox",
+        device="cuda",
+    ):
+        """(H, W) depth map of the argmax of a per-ray plane distribution
+        ``S`` (N, D), the points sampled on ``device`` by the scheme's op."""
+        device = resolve_device(device)
+        H, W = scene.image_shape
+        image = scene.get_image(img_idx)
+        n, d = S.shape
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        extra = (scene.bbox.reshape(-1) if "bbox" in sampling_scheme
+                 else scene.depth_range)
+        points = get_sampling_scheme_op(sampling_scheme)(
+            torch.arange(n, dtype=torch.int32, device=device),
+            f32(image.camera.P_pinv), f32(image.camera.center[:3, 0]),
+            f32(extra), H, d,
+        ).cpu().numpy()
+        best = np.asarray(S).argmax(axis=1)
+        pts = points[np.arange(n), best]
+        depth = np.linalg.norm(
+            pts - image.camera.center[:3, 0][None], axis=-1
+        )
+        return np.minimum(depth.reshape(W, H).T, truncate)
+
+    @staticmethod
+    def create_depth_map_from_distribution_with_voting(
+        scene, img_idx, points, S, truncate=800
+    ):
+        """Expectation ("voting") depth instead of the argmax: ``points``
+        (4, N, D) homogeneous, ``S`` (N, D)."""
+        H, W = scene.image_shape
+        center = scene.get_image(img_idx).camera.center
+        dists = np.sqrt(
+            ((center.reshape(-1, 1, 1) - points) ** 2).sum(axis=0)
+        )
+        D = (np.asarray(S) * dists).sum(axis=-1)
+        return np.minimum(D.reshape(W, H).T, truncate)
 
     def get_valid_rays_per_image(self, scene, i):
         """Column-major ray indices of image ``i``; with ``filter_out_rays``
@@ -387,19 +437,113 @@ class RayNetForwardPass(ForwardPass):
                                time.perf_counter() - t0)
 
 
+class HartmannForwardPass(ForwardPass):
+    """Patch-based Hartmann et al. baseline (factory name: hartmann_fp).
+
+    For each reference view: the scheme's points of every (ray, plane), all
+    projected into every view in float64 and rounded half to even (as
+    ``np.round``); each chunk of quintuples gathered on the device from the
+    zero-bordered views (``common.image.gather_patches``) and scored by one
+    ``model.predict`` call; the score of a quintuple is channel 0 of the
+    prediction, averaged over all but the batch axis; depth is the
+    camera-centre distance of the first best plane, capped at 800 (only
+    this pass caps it).
+
+    The model is a ``HartmannModel`` (channel 0: the match probability) or,
+    as the JAX package's CLI hands it, a ``FeatureExtractor`` (channel 0 of
+    its features, averaged over views and cells). On the card a chunk holds
+    as many quintuples as ``memory_fraction`` of the free memory allows;
+    on the CPU ``rays_batch`` quintuples; ``quintuples_per_call`` records
+    the last chunk.
+    """
+
+    memory_fraction = 0.5
+    quintuples_per_call = None
+
+    def __init__(self, model, generation_params, sampling_scheme,
+                 image_shape, rays_batch=8192, filter_out_rays=False,
+                 device="cuda"):
+        super().__init__(model, generation_params, sampling_scheme,
+                         image_shape, rays_batch, filter_out_rays, device)
+
+    def _chunk(self, views, patch_shape):
+        """Quintuples per model call."""
+        if self.device.type != "cuda":
+            return max(1, self.rays_batch)
+        ph, pw, c = patch_shape
+        # a quintuple's bytes: the gathered patches twice (gather, NCHW copy)
+        # with their int64 indices, and the first conv's output twice (conv,
+        # activation), the largest activations of a patch CNN
+        first = getattr(self._model, "first_conv_channels", 32)
+        per = views * ph * pw * (4 * (2 * c + 2 * first) + 8)
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return max(1, int(self.memory_fraction * free) // per)
+
+    def project_pixels(self, images, points):
+        """(V, K, 2) int32 pixel centres of (3, K) points in every view:
+        float64 projections on the device, rounded half to even."""
+        pts = torch.as_tensor(np.asarray(points), device=self.device)
+        pts = torch.cat([pts.to(torch.float64),
+                         torch.ones_like(pts[:1], dtype=torch.float64)])
+        P = torch.as_tensor(np.stack([im.camera.P for im in images]),
+                            device=self.device).to(torch.float64)
+        hom = P @ pts  # (V, 3, K)
+        xy = hom[:, :2] / hom[:, 2:]
+        return torch.round(xy).to(torch.int32).permute(0, 2, 1)
+
+    def image_scores(self, images, points):
+        """(N, D) float32 scores on the device of the (3, N, D) ``points``
+        of a reference view set ``images`` (reference first)."""
+        gp = self._generation_params
+        _, n, d = points.shape
+        ps = tuple(gp.patch_shape[:2])
+        with self.timer.phase("Projection"):
+            pixels = self.project_pixels(images, points.reshape(3, n * d))
+            padded = padded_images(torch.as_tensor(
+                np.stack([im.image for im in images]), device=self.device),
+                ps)
+        scores = torch.empty(n * d, dtype=torch.float32, device=self.device)
+        chunk = self.quintuples_per_call = self._chunk(len(images),
+                                                        gp.patch_shape)
+        with self.timer.phase("Patch scoring"):
+            for off in range(0, n * d, chunk):
+                quint = gather_patches(padded, pixels[:, off:off + chunk], ps)
+                pred = self._model.predict(quint)
+                pred = torch.as_tensor(pred, device=self.device)
+                scores[off:off + len(quint)] = pred[..., 0].reshape(
+                    len(quint), -1).mean(dim=1)
+        return scores.reshape(n, d)
+
+    def forward_pass(self, scene, images_range):
+        """Yield one (H, W) depth map per reference image of
+        ``images_range`` = (start, end, skip)."""
+        start, end, skip = _check_images_range(images_range)
+        H, W = scene.image_shape
+        gp = self._generation_params
+        for ref_idx in range(start, end, skip):
+            images = scene.get_image_with_neighbors(ref_idx, gp.neighbors)
+            with self.timer.phase("Sampling"):
+                points = np.asarray(
+                    self._sampling_scheme.sample_points_across_rays(
+                        scene, ref_idx))[:3]
+            _, n, _ = points.shape
+            scores = self.image_scores(images, points)
+            with self.timer.phase("Per-pixel depth estimation"):
+                best = scores.argmax(dim=1).cpu().numpy()
+            pts = points[:, np.arange(n), best].T
+            center = images[0].camera.center[:3, 0]
+            depth = np.linalg.norm(pts - center[None], axis=-1)
+            yield np.minimum(depth.reshape(W, H).T, 800)
+
+
 _FACTORIES = {
     "multi_view_cnn": MultiViewCNNForwardPass,
     "multi_view_cnn_voxel_space": MultiViewCNNVoxelSpaceForwardPass,
     "raynet": RayNetForwardPass,
+    "hartmann_fp": HartmannForwardPass,
 }
 
 
 def get_forward_pass_factory(name):
-    """The forward-pass class for ``name``; ``hartmann_fp`` is not ported
-    yet and raises."""
-    if name not in _FACTORIES:
-        raise NotImplementedError(
-            "forward pass factory %r is not ported to raynet_tpu_torch yet "
-            "(have: %s)" % (name, ", ".join(sorted(_FACTORIES)))
-        )
+    """The forward-pass class for ``name``."""
     return _FACTORIES[name]

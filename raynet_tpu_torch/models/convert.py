@@ -1,54 +1,150 @@
-"""Carry the JAX FeatureExtractor's flax variables into the port.
+"""Carry flax variables across to the port's modules, and back.
 
 ``state_dict_from_flax(variables)`` maps the nested dict of numpy arrays
-(``{"params": ..., "batch_stats": ...}``) onto a ConvBNStack ``state_dict``:
-conv kernels HWIO -> OIHW, BatchNorm ``scale``/``bias``/``mean``/``var`` into
-BatchNorm2d's weight, bias and eval buffers, LayerNormalization
-``gamma``/``bias`` as they are. ``read_flax_msgpack`` decodes a file written
-by ``flax.serialization.to_bytes`` without flax.
+(``{"params": ..., "batch_stats": ...}``) of a CNN onto its module's
+``state_dict``: conv kernels HWIO -> OIHW, BatchNorm ``scale``/``bias``/
+``mean``/``var`` into BatchNorm2d's weight, bias and running buffers,
+LayerNormalization ``gamma``/``bias`` as they are. The CNN's subtree is
+found wherever the JAX package puts it: at the top (``FeatureExtractor``),
+or under the flax class of a similarity net (``SimpleCNN_0``,
+``HartmannCNN_0``, ...), so the weight files of the JAX package's
+``raynet_pretrain`` load into a FeatureExtractor too.
+``similarity_state_dict_from_flax`` and ``hartmann_state_dict_from_flax``
+map whole similarity nets; ``flax_from_*`` go the other way.
+``read_flax_msgpack`` / ``write_flax_msgpack`` read and write the files of
+``flax.serialization.to_bytes`` without flax.
 """
+import msgpack
 import numpy as np
 import torch
 
-
-def _stack(tree):
-    (name,) = [k for k in tree if k.startswith("_ConvBNStack")]
-    return tree[name]
+from .cnn import FLAX_CLASS
 
 
 def _indexed(layer_tree, prefix):
     keys = [k for k in layer_tree if k.startswith(prefix + "_")]
-    return [layer_tree[k] for k in sorted(keys, key=lambda k: int(k.rsplit("_", 1)[1]))]
+    return [layer_tree[k]
+            for k in sorted(keys, key=lambda k: int(k.rsplit("_", 1)[1]))]
 
 
-def state_dict_from_flax(variables):
-    """flax variables of a ``_ConvBNStack`` CNN -> ConvBNStack state_dict."""
-    params = _stack(variables["params"])
-    stats = _stack(variables["batch_stats"]) if "batch_stats" in variables else {}
+def _cnn_tree(tree):
+    """The subtree of one CNN's layers (``Conv_i``, ``BatchNorm_i``, ...)
+    inside ``tree``, descending through the flax module wrappers."""
+    while True:
+        stacks = [k for k in tree if k.startswith("_ConvBNStack")]
+        if stacks:
+            return tree[stacks[0]]
+        wrappers = [k for k in tree
+                    if k.rsplit("_", 1)[0] in FLAX_CLASS.values()]
+        if not wrappers:
+            return tree
+        tree = tree[wrappers[0]]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _conv(sd, prefix, conv):
+    sd[prefix + ".weight"] = _t(np.transpose(conv["kernel"], (3, 2, 0, 1)))
+    sd[prefix + ".bias"] = _t(conv["bias"])
+
+
+def state_dict_from_flax(variables, prefix=""):
+    """flax variables of a CNN -> the state_dict of ``cnn_factory``'s module
+    (ConvBNStack or HartmannCNN), keys prefixed with ``prefix``."""
+    params = _cnn_tree(variables["params"])
+    stats = _cnn_tree(variables.get("batch_stats") or {})
     sd = {}
-
-    def t(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
     for i, conv in enumerate(_indexed(params, "Conv")):
-        sd["convs.%d.weight" % i] = t(np.transpose(conv["kernel"], (3, 2, 0, 1)))
-        sd["convs.%d.bias" % i] = t(conv["bias"])
+        _conv(sd, prefix + "convs.%d" % i, conv)
     bns = _indexed(params, "BatchNorm")
     for i, (bn, st) in enumerate(zip(bns, _indexed(stats, "BatchNorm"))):
-        sd["norms.%d.weight" % i] = t(bn["scale"])
-        sd["norms.%d.bias" % i] = t(bn["bias"])
-        sd["norms.%d.running_mean" % i] = t(st["mean"])
-        sd["norms.%d.running_var" % i] = t(st["var"])
-        sd["norms.%d.num_batches_tracked" % i] = torch.tensor(0)
+        p = prefix + "norms.%d." % i
+        sd[p + "weight"] = _t(bn["scale"])
+        sd[p + "bias"] = _t(bn["bias"])
+        sd[p + "running_mean"] = _t(st["mean"])
+        sd[p + "running_var"] = _t(st["var"])
+        sd[p + "num_batches_tracked"] = torch.tensor(0)
     for i, ln in enumerate(_indexed(params, "LayerNormalization")):
-        sd["norms.%d.gamma" % i] = t(ln["gamma"]).reshape(1, 1, 1, 1)
-        sd["norms.%d.bias" % i] = t(ln["bias"])
+        sd[prefix + "norms.%d.gamma" % i] = _t(ln["gamma"]).reshape(1, 1, 1, 1)
+        sd[prefix + "norms.%d.bias" % i] = _t(ln["bias"])
     return sd
+
+
+def similarity_state_dict_from_flax(variables):
+    """flax variables of a MultiViewSimilarityNet -> its port's state_dict."""
+    return state_dict_from_flax(variables, prefix="cnn.")
+
+
+def hartmann_state_dict_from_flax(variables):
+    """flax variables of a HartmannSimilarityNet -> its port's state_dict."""
+    params = variables["params"]
+    sd = state_dict_from_flax({"params": params["HartmannCNN_0"]},
+                              prefix="cnn.")
+    for i, conv in enumerate(_indexed(params, "Conv")):
+        _conv(sd, "head.%d" % i, conv)
+    return sd
+
+
+def _np(t):
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _flax_cnn(sd, prefix):
+    """(params, batch_stats) flax subtrees of a CNN's state_dict entries."""
+    params, stats = {}, {}
+    i = 0
+    while prefix + "convs.%d.weight" % i in sd:
+        params["Conv_%d" % i] = {
+            "kernel": np.transpose(_np(sd[prefix + "convs.%d.weight" % i]),
+                                   (2, 3, 1, 0)),
+            "bias": _np(sd[prefix + "convs.%d.bias" % i]),
+        }
+        p = prefix + "norms.%d." % i
+        if p + "running_mean" in sd:
+            params["BatchNorm_%d" % i] = {"scale": _np(sd[p + "weight"]),
+                                          "bias": _np(sd[p + "bias"])}
+            stats["BatchNorm_%d" % i] = {"mean": _np(sd[p + "running_mean"]),
+                                         "var": _np(sd[p + "running_var"])}
+        elif p + "gamma" in sd:
+            params["LayerNormalization_%d" % i] = {
+                "gamma": _np(sd[p + "gamma"]), "bias": _np(sd[p + "bias"])}
+        i += 1
+    if params.keys() - {"Conv_0", "Conv_1"}:  # a ConvBNStack
+        params = {"_ConvBNStack_0": params}
+        stats = {"_ConvBNStack_0": stats} if stats else {}
+    return params, stats
+
+
+def flax_from_similarity_state_dict(sd, cnn_name):
+    """A MultiViewSimilarityNet's state_dict -> the flax variables the JAX
+    package's ``raynet_pretrain`` saves for it."""
+    params, stats = _flax_cnn(sd, "cnn.")
+    name = FLAX_CLASS[cnn_name] + "_0"
+    out = {"params": {name: params}, "batch_stats": {}}
+    if stats:
+        out["batch_stats"] = {name: stats}
+    return out
+
+
+def flax_from_hartmann_state_dict(sd):
+    """A HartmannSimilarityNet's state_dict -> the flax variables the JAX
+    package's ``raynet_pretrain`` saves for it."""
+    params, _ = _flax_cnn(sd, "cnn.")
+    out = {"HartmannCNN_0": params}
+    i = 0
+    while "head.%d.weight" % i in sd:
+        out["Conv_%d" % i] = {
+            "kernel": np.transpose(_np(sd["head.%d.weight" % i]), (2, 3, 1, 0)),
+            "bias": _np(sd["head.%d.bias" % i]),
+        }
+        i += 1
+    return {"params": out, "batch_stats": {}}
 
 
 def read_flax_msgpack(path):
     """Nested dict of numpy arrays from a flax msgpack checkpoint."""
-    import msgpack
 
     def ext_hook(code, data):
         # 1: ndarray, 3: numpy scalar; both (shape, dtype name, C bytes)
@@ -62,3 +158,18 @@ def read_flax_msgpack(path):
         return msgpack.unpackb(
             f.read(), ext_hook=ext_hook, raw=False, strict_map_key=False
         )
+
+
+def write_flax_msgpack(path, tree):
+    """Write a nested dict of numpy arrays as ``flax.serialization.to_bytes``
+    does (arrays as msgpack extension 1: shape, dtype name, C bytes)."""
+
+    def default(x):
+        if isinstance(x, np.ndarray):
+            data = msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
+                                 use_bin_type=True)
+            return msgpack.ExtType(1, data)
+        raise TypeError("cannot serialise %r" % (type(x),))
+
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(tree, default=default, strict_types=True))

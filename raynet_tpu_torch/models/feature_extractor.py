@@ -1,24 +1,34 @@
-"""Feature extraction: a CNN bound to parameters with a predict() API.
+"""Feature extraction and the Hartmann match scorer: modules bound to
+parameters with a predict() API.
 
-Port of ``raynet_tpu/models/feature_extractor.py:16-69`` and ``:147-170``.
-The public layout is JAX's, (V, H, W, C) in and (V, Hf, Wf, F) out; the
-module runs NCHW in between.
+Port of ``raynet_tpu/models/feature_extractor.py``. The public layout is
+JAX's, channels last: images (..., H, W, C) in and features (..., Hf, Wf, F)
+out, patch quintuples (B, V, ph, pw, C) in and match scores (B, h', w', 2)
+out; the modules run NCHW in between.
 """
 import numpy as np
 import torch
 
-from .cnn import cnn_factory
-from .convert import read_flax_msgpack, state_dict_from_flax
+from ..utils.generic_utils import resolve_device
+from .cnn import HartmannSimilarityNet, cnn_factory
+from .convert import (
+    flax_from_hartmann_state_dict,
+    hartmann_state_dict_from_flax,
+    read_flax_msgpack,
+    state_dict_from_flax,
+    write_flax_msgpack,
+)
 
 
-def _device(device):
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device %s requested but torch.cuda.is_available() is False"
-            % (device,)
-        )
-    return device
+def _as_float_tensor(x, device):
+    """An array or tensor on ``device`` as float32; uint8 is divided by 255
+    in float32 there."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    x = x.to(device)
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) / 255.0
+    return x.to(torch.float32)
 
 
 class FeatureExtractor:
@@ -36,14 +46,7 @@ class FeatureExtractor:
         self.cnn_name = cnn_name
         self.channels = channels
         self.output_dtype = output_dtype
-        self.device = _device(device)
-        if self.device.type == "cuda":
-            # cuDNN convolutions and cuBLAS matmuls default to TF32 on this
-            # card (10-bit mantissa). The features feed integer feature-cell
-            # lookups and near-tied argmaxes downstream; keep them float32
-            # so they agree with the CPU path and the JAX reference.
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        self.device = resolve_device(device)
         self.model = cnn_factory(cnn_name)(channels)
         if state_dict is None:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -55,25 +58,29 @@ class FeatureExtractor:
     def feature_dim(self):
         return self.model.convs[-1].out_channels
 
+    @property
+    def first_conv_channels(self):
+        return self.model.convs[0].out_channels
+
     @torch.no_grad()
     def predict(self, images):
-        """images: (V, H, W, C) float array in [0, 1], or uint8, which is
-        moved as is and divided by 255 in float32 on the device ->
-        (V, Hf, Wf, F) features on this extractor's device."""
-        x = torch.as_tensor(np.asarray(images)).to(self.device)
-        if x.dtype == torch.uint8:
-            x = x.to(torch.float32) / 255.0
-        else:
-            x = x.to(torch.float32)
-        out = self.model(x.permute(0, 3, 1, 2).contiguous())
-        out = out.permute(0, 2, 3, 1).contiguous()
+        """images: (..., H, W, C) float array or tensor in [0, 1], or uint8,
+        which is moved as is and divided by 255 in float32 on the device ->
+        (..., Hf, Wf, F) features on this extractor's device. Any leading
+        dims, as flax's modules take them."""
+        x = _as_float_tensor(images, self.device)
+        lead = x.shape[:-3]
+        x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)
+        out = self.model(x.contiguous()).permute(0, 2, 3, 1)
+        out = out.reshape(lead + out.shape[1:]).contiguous()
         if self.output_dtype is not None:
             out = out.to(self.output_dtype)
         return out
 
     def load_weights(self, path):
-        """Load a flax msgpack checkpoint written by the JAX package's
-        ``FeatureExtractor.save_weights``."""
+        """Load a flax msgpack file: the JAX package's
+        ``FeatureExtractor.save_weights``, or a weight file of either
+        package's pretraining (the similarity net's CNN is taken)."""
         sd = state_dict_from_flax(read_flax_msgpack(path))
         self.model.load_state_dict(sd)
         self.model.to(self.device)
@@ -83,6 +90,59 @@ class FeatureExtractor:
         fe = cls(cnn_name, channels=channels, **kwargs)
         fe.load_weights(path)
         return fe
+
+
+class HartmannModel:
+    """HartmannSimilarityNet bound to parameters, with a predict() API:
+    patch quintuples -> 2-way match softmax maps.
+
+    ``state_dict``: the net's parameters (e.g. from
+    ``convert.hartmann_state_dict_from_flax``); without it they are drawn
+    from a ``torch.Generator`` seeded with ``seed``, on the CPU.
+    """
+
+    cnn_name = "hartmann_cnn"
+
+    def __init__(self, state_dict=None, seed=0, patch_shape=(32, 32, 3),
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model = HartmannSimilarityNet(patch_shape[2])
+        if state_dict is None:
+            self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        else:
+            self.model.load_state_dict(state_dict)
+        self.model.eval().to(self.device)
+
+    @property
+    def first_conv_channels(self):
+        return self.model.cnn.convs[0].out_channels
+
+    @torch.no_grad()
+    def predict(self, patches):
+        """patches: (B, V, ph, pw, C) array or tensor -> (B, h', w', 2)
+        match scores on this model's device, channels last."""
+        x = _as_float_tensor(patches, self.device).permute(0, 1, 4, 2, 3)
+        return self.model(x.contiguous()).permute(0, 2, 3, 1).contiguous()
+
+    def save_weights(self, path):
+        write_flax_msgpack(
+            path, flax_from_hartmann_state_dict(self.model.state_dict()))
+
+    def load_weights(self, path):
+        self.model.load_state_dict(
+            hartmann_state_dict_from_flax(read_flax_msgpack(path)))
+        self.model.to(self.device)
+
+
+def upsample_features(features, cnn_name):
+    """Repeat the cells of a strided CNN's (V, Hf, Wf, F) feature maps back
+    to pixel stride (``hartmann_cnn``: two 2x2 max-pools, 4x), on their
+    device; pure conv stacks return them unchanged."""
+    total_stride = {"hartmann_cnn": 4}.get(cnn_name, 1)
+    if total_stride <= 1:
+        return features
+    return features.repeat_interleave(total_stride, dim=1).repeat_interleave(
+        total_stride, dim=2)
 
 
 def zeropad_images(images, padding):

@@ -4,7 +4,14 @@ Same flag names, choices and defaults as ``raynet_tpu/scripts/arguments.py``
 (which imports the JAX training code, so the groups are repeated here),
 plus ``--device``; ``build_dataset`` gives its scenes that device.
 """
+import os
+
 from ..common.dataset import DTUDataset, RestrepoDataset
+from ..train.sample import (
+    CompareWithReferenceSampleGenerator,
+    DefaultSampleGenerator,
+    HartmannSampleGenerator,
+)
 
 
 def add_nn_arguments(parser):
@@ -59,6 +66,36 @@ def add_nn_arguments(parser):
                         help="Zero padding around images")
     parser.add_argument("--weight_decay", type=float, default=0.0,
                         help="L2 regularizer factor")
+
+
+def add_training_arguments(parser):
+    parser.add_argument("--epochs", type=int, default=500)
+    parser.add_argument("--steps_per_epoch", type=int, default=500)
+    parser.add_argument("--training_cached_samples", type=int, default=500,
+                        help="Samples kept in the prefetch cache")
+    parser.add_argument("--n_test_samples", type=int, default=500)
+    parser.add_argument(
+        "--lr_epochs",
+        type=lambda x: [int(v) for v in x.split(",")],
+        default="50,80,100,120",
+        help="Epochs at which the learning rate is reduced",
+    )
+    parser.add_argument("--lr_factor", type=float, default=None)
+    parser.add_argument("--batch_size", type=int, default=32)
+
+
+def add_experiments_related_arguments(parser):
+    parser.add_argument("--training_set_name", default="BH")
+    parser.add_argument("--test_set_name", default="Downtown")
+    parser.add_argument(
+        "--credentials",
+        default=os.path.join(os.path.dirname(__file__), ".credentials"),
+    )
+    parser.add_argument("--spreadsheet", default="Sheet1")
+
+
+def add_hartmann_related_arguments(parser):
+    parser.add_argument("--step_depth", default=15, type=int)
 
 
 def add_generation_arguments(parser):
@@ -168,6 +205,43 @@ def add_device_arguments(parser):
         help="torch device to run on (default cuda; 'cpu' runs the plain "
              "PyTorch versions of the kernels)",
     )
+
+
+def get_input_output_shapes(name):
+    return {
+        "default": default_input_output_shape,
+        "hartmann": hartmann_input_output_shape,
+        "reference_wrt_others": reference_wrt_others_input_output_shape,
+    }[name]
+
+
+def get_sample_generator(name):
+    return {
+        "default": DefaultSampleGenerator,
+        "hartmann": HartmannSampleGenerator,
+        "reference_wrt_others": CompareWithReferenceSampleGenerator,
+    }[name]
+
+
+def default_input_output_shape(generation_params):
+    n = generation_params.neighbors
+    d = generation_params.depth_planes
+    n_pairs = n * (n + 1) // 2
+    dims = (d, n_pairs) + tuple(generation_params.patch_shape)
+    return [dims] * 2, [(d,)]
+
+
+def hartmann_input_output_shape(generation_params):
+    n = generation_params.neighbors
+    return [tuple(generation_params.patch_shape)] * (n + 1), [(1, 1, 2)]
+
+
+def reference_wrt_others_input_output_shape(generation_params):
+    d = generation_params.depth_planes
+    dims = (d, generation_params.neighbors) + tuple(
+        generation_params.patch_shape
+    )
+    return [dims] * 2, [(d,)]
 
 
 def build_dataset(

@@ -3,9 +3,10 @@
 
 The PyTorch twin of ``raynet_tpu/scripts/forward_pass.py``: the same
 positional arguments, flags and ``depth_%03d.npy`` outputs, plus
-``--device`` (default ``cuda``). The factories ``raynet``,
-``multi_view_cnn`` and ``multi_view_cnn_voxel_space`` are ported;
-``hartmann_fp`` raises. Scenes are read by the port's own data layer
+``--device`` (default ``cuda``), for all four factories. As in the JAX
+package the model is a ``FeatureExtractor`` of ``--cnn_factory`` for every
+factory, ``hartmann_fp`` included (which then scores a quintuple by
+channel 0 of its features). Scenes are read by the port's own data layer
 (``raynet_tpu_torch/common``), so the CLI runs without the JAX package.
 """
 import argparse
@@ -14,6 +15,7 @@ import os
 import numpy as np
 
 from ..common.generation_parameters import GenerationParameters
+from ..common.sampling_schemes import make_sampling_scheme
 from ..inference import get_forward_pass_factory
 from ..models.feature_extractor import FeatureExtractor
 from .arguments import (
@@ -64,6 +66,8 @@ def main(argv=None):
     os.makedirs(args.output_directory, exist_ok=True)
 
     generation_params = GenerationParameters.from_options(args)
+    sampling_scheme = make_sampling_scheme(
+        args.sampling_policy, generation_params, device=args.device)
     dataset = build_dataset(
         args.dataset_type,
         args.dataset_directory,
@@ -88,7 +92,7 @@ def main(argv=None):
     fp = factory(
         model,
         generation_params,
-        None,  # the ported passes sample along bbox segments
+        sampling_scheme,
         scene.image_shape,
         args.rays_batch,
         filter_out_rays=args.filter_out,

@@ -1,22 +1,39 @@
-"""Voxel-grid construction for the data layer, and the device check of
-the port's entry points.
+"""Voxel-grid construction and points along rays for the data layer, and
+the device check of the port's entry points.
 
-``get_voxel_grid`` is a copy of
-``raynet_tpu/utils/generic_utils.py::get_voxel_grid``.
+``point_from_depth`` and ``get_voxel_grid`` are copies of
+``raynet_tpu/utils/generic_utils.py``'s.
 """
 import numpy as np
 import torch
 
 
 def resolve_device(device):
-    """torch.device for ``device``; a CUDA device without a card raises."""
+    """torch.device for ``device``; a CUDA device without a card raises.
+
+    On a CUDA device the port computes in float32: cuDNN convolutions and
+    cuBLAS matmuls default to TF32 on this card (a 10-bit mantissa), so it
+    switches TF32 off for the process. Features feed integer feature-cell
+    lookups and near-tied argmaxes, and training steps are held to the CPU's.
+    """
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device %s requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch path" % (device,)
-        )
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device %s requested but torch.cuda.is_available() is False; "
+                "pass device='cpu' to run the plain PyTorch path" % (device,)
+            )
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def point_from_depth(camera_center, direction, depth):
+    """3D point at metric ``depth`` along a (not necessarily unit) ray."""
+    assert camera_center.shape == (3, 1)
+    assert direction.shape == (3, 1)
+    a_norm = direction / np.sqrt(np.sum(direction ** 2))
+    return a_norm * depth + camera_center
 
 
 def get_voxel_grid(bbox, grid_shape):

@@ -2,7 +2,8 @@
 intersection.
 
 Copy of the functions of ``raynet_tpu/utils/geometry.py`` that the port's
-scenes, images, GT-mesh index and metrics call. Points are homogeneous column
+scenes, images, GT-mesh index, metrics, sampling schemes and sample
+generators call. Points are homogeneous column
 vectors unless stated otherwise. The tensor geometry of the forward pass is
 ``raynet_tpu_torch/ops/geometry.py``.
 """
@@ -27,6 +28,36 @@ def project(P, points):
     if len(points_hat) == 1:
         points_hat = points_hat.T
     return points_hat
+
+
+def ray_aabbox_intersection(origin, destination, bbox_min, bbox_max):
+    """Scalar slab test of a ray against an axis-aligned box.
+
+    The ray is parameterized as ``origin + t * (destination - origin)``.
+    Returns ``(t_near, t_far)`` or ``(None, None)`` when the box is missed or
+    lies entirely behind the ray.
+    """
+    origin = np.asarray(origin, dtype=np.float64).reshape(-1)
+    destination = np.asarray(destination, dtype=np.float64).reshape(-1)
+    direction = destination - origin
+    bbox_min = np.asarray(bbox_min, dtype=np.float64).reshape(-1)
+    bbox_max = np.asarray(bbox_max, dtype=np.float64).reshape(-1)
+
+    t_near, t_far = float("-inf"), float("inf")
+    for i in range(3):
+        if direction[i] == 0:
+            if origin[i] < bbox_min[i] or origin[i] > bbox_max[i]:
+                return None, None
+        else:
+            t1 = (bbox_min[i] - origin[i]) / direction[i]
+            t2 = (bbox_max[i] - origin[i]) / direction[i]
+            if t1 > t2:
+                t1, t2 = t2, t1
+            t_near = max(t1, t_near)
+            t_far = min(t2, t_far)
+            if t_near > t_far or t_far < 0:
+                return None, None
+    return t_near, t_far
 
 
 def ray_triangles_intersection_mt(origin, destination, p0, p1, p2):
@@ -68,6 +99,31 @@ def ray_triangles_intersection_mt(origin, destination, p0, p1, p2):
 def distance(p1, p2):
     """Euclidean distance between two column vectors."""
     return np.sqrt(np.sum((np.asarray(p1) - np.asarray(p2)) ** 2))
+
+
+def point_in_aabbox(point, bbox_min, bbox_max):
+    return bool(np.all(point >= bbox_min) and np.all(point <= bbox_max))
+
+
+def ray_ray_intersection(p1, a1, p2, a2):
+    """Least-squares closest point of two rays ``p + a t``.
+
+    Arguments are (3, 1) column vectors (non-homogeneous). Returns the point
+    on the first ray closest to the second, as a (1, 3) row vector.
+    """
+    a1_pow2 = np.dot(a1.T, a1)
+    a2_pow2 = np.dot(a2.T, a2)
+    a1a2 = np.dot(a1.T, a2)
+    divisor = a1_pow2 * a2_pow2 - a1a2.T * a1a2
+
+    a1p1 = np.dot(a1.T, p1)
+    a1p2 = np.dot(a1.T, p2)
+    a2p1 = np.dot(a2.T, p1)
+    a2p2 = np.dot(a2.T, p2)
+
+    t1 = -a2_pow2 * (a1p1 - a1p2) + a1a2 * (a2p1 - a2p2)
+    t1 = t1 / divisor
+    return (p1 + a1 * t1).T
 
 
 def keep_points_in_aabbox(points, bbox_min, bbox_max):
