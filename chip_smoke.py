@@ -126,14 +126,30 @@ order, every phase failing loudly (nonzero exit):
    each mode from the same state and batch on the card and on the CPU: loss
    within rtol 1e-4, BatchNorm statistics within 1e-4 relative, and the
    gradient's relative L2 distance to the CPU's within ``STEP_GRAD_BAR``,
-   which the same step with TF32 on must exceed. No module of JAX or of the
-   JAX package may have been imported.
+   which the same step with TF32 on must exceed;
+14. ``raynet_train_torch`` (``scripts.train_raynet.main``) on the card at
+   the JAX CLI's widths (simple_cnn, D = 32, 4 neighbours, 11x11x3
+   patches, grid 256x256x128, M = 650, 1,000 rays a batch, 3 BP
+   iterations, a trainable gamma from 0.05, EMD, Adam at 1e-3) on the rig
+   of phase 13, ``--window 2``, 3 iterations: every loss finite, gamma
+   inside its clip and moved, K3's rows mode launched exactly once per
+   batch (3 training batches and the validation batch) and no other
+   kernel, each iteration's seconds split into drawing samples, finishing
+   them (the K3 launch) and the step, peak device memory, the weight file
+   read back by ``raynet_forward_torch --weight_file``, ``--resume`` from
+   iteration 2's checkpoint continuing at 2 with appended logs; then on a
+   fixed 1,000-ray batch its traversal equal to the plain version's and
+   the card's step alone (ms, rays/s), and one step on 64 of its rays on
+   the card and on the CPU: loss within rtol 1e-4, the updated gamma within
+   1e-5 relative, the gradient's relative L2 distance within
+   ``E2E_GRAD_BAR``, which the same step with TF32 on must exceed.
+   No module of JAX or of the JAX package may have been imported.
 
 The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
 (``time_kernels.kernel_rig``, ``time_kernels.time_all``, ``roofline``).
 The last lines are a JSON summary of the passes, the probes, the trace,
 the host store and the evaluation, the kernels' JSON line (times, bounds,
-launches; K3's rows mode counted in phase 11), and the card's name and
+launches; K3's rows mode counted in phases 11 and 14), and the card's name and
 power limit before the final JSON line ``{"ok": true, "device": ...}``.
 Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
@@ -975,6 +991,417 @@ def phase_pretrain(check, dev, small):
     return out
 
 
+# The card's one-step gradient of end-to-end training is held to the CPU's,
+# ||g_card - g_cpu|| / ||g_cpu|| at most E2E_GRAD_BAR, on a 64-ray batch at
+# the CLI's widths. Readings on an H100 80GB HBM3 and its machine's CPU: the
+# step as the path runs it (TF32 off) 1.87e-5; the same step with TF32 on
+# 1.45e-2. The bar is 5x the first reading and lets the second fail.
+E2E_GRAD_BAR = 1e-4
+
+# phase 14's widths: the JAX CLI's defaults (raynet_train), 3 BP iterations,
+# a trainable gamma from 0.05, EMD, Adam at 1e-3
+E2E = {"D": 32, "grid": (256, 256, 128), "M": 650, "rays": 1000,
+       "iterations": 3, "cpu_rays": 64}
+
+
+def e2e_flags():
+    return ["--cnn_factory", "simple_cnn",
+            "--depth_planes", str(E2E["D"]), "--neighbors", "4",
+            "--patch_shape", "11,11,3",
+            "--grid_shape", ",".join(str(g) for g in E2E["grid"]),
+            "--maximum_number_of_marched_voxels", str(E2E["M"]),
+            "--rays_batch_size", str(E2E["rays"]), "--bp_iterations", "3",
+            "--train_with_gamma", "--initial_gamma_prior", "0.05",
+            "--loss", "emd", "--optimizer", "Adam", "--lr", "1e-3",
+            "--window", "2", "--validate_every", "3",
+            "--snapshot_every", "3", "--checkpoint_every", "2"]
+
+
+def _iteration_splits(printed):
+    """Each iteration's (seconds drawing samples, seconds finishing them,
+    traversal calls, seconds of the step) from the training CLI's lines."""
+    return [(float(a), float(b), int(c), float(d)) for a, b, c, d in
+            re.findall(r"drawing samples ([\d.]+) s, finishing them "
+                       r"([\d.]+) s \((\d+) traversal call\(s\)\), the step "
+                       r"([\d.]+) s", printed)]
+
+
+def e2e_step_against_cpu(check, dev, batch):
+    """One end-to-end training step from the same state and batch (64 rays
+    at the CLI's widths) on the card and on the CPU: the losses, the updated
+    gamma, the BatchNorm statistics and the gradients, the last against
+    ``E2E_GRAD_BAR``; a control runs the card's step with TF32 on and must
+    exceed the bar."""
+    import torch
+
+    from raynet_tpu_torch.common.generation_parameters import (
+        GenerationParameters,
+    )
+    from raynet_tpu_torch.train.train_e2e import build_end_to_end_training
+
+    gp = GenerationParameters(depth_planes=E2E["D"], neighbors=4,
+                              patch_shape=(11, 11, 3))
+
+    def step(device, tf32=False):
+        state, train, _ = build_end_to_end_training(
+            27, gp, E2E["grid"], lr=1e-3, gamma=0.05,
+            train_with_gamma=True, bp_iterations=3, return_grads=True,
+            device=device)
+        # the build switched TF32 off on the card; the control turns it on
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            state, m = train(state, batch)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        grads = torch.cat([g.detach().cpu().double().reshape(-1) for g in
+                           m["grads"]["cnn"].values()]
+                          + [m["grads"]["gamma"].cpu().double().reshape(1)])
+        stats = {k: v.detach().cpu() for k, v in
+                 state.model.state_dict().items() if "running" in k}
+        return float(m["loss"]), state.gamma.item(), grads, stats
+
+    t0 = time.perf_counter()
+    lp, gp_, g_cpu, sp = step("cpu")
+    cpu_s = time.perf_counter() - t0
+    lc, gc, g_card, sc = step(dev)
+    lt, _, g_tf32, _ = step(dev, tf32=True)
+
+    def rel(a):
+        return float((a - g_cpu).norm() / g_cpu.norm())
+
+    err, err_tf32 = rel(g_card), rel(g_tf32)
+    serr = max(float(((sc[k] - sp[k]).abs() / (sp[k].abs() + 1e-2)).max())
+               for k in sp)
+    gerr = abs(gc - gp_) / abs(gp_)
+    log("  one step on %d rays, card / CPU: loss %.7f / %.7f (TF32 %.7f); "
+        "gamma after the update %.7f / %.7f; gradient's relative distance "
+        "to the CPU's %.3e (TF32 control %.3e, bar %.1e); BatchNorm "
+        "statistics max rel diff %.3e; the CPU's step %.3f s"
+        % (batch["y"].shape[0], lc, lp, lt, gc, gp_, err, err_tf32,
+           E2E_GRAD_BAR, serr, cpu_s))
+    check(abs(lc - lp) <= 1e-4 * abs(lp) and gerr <= 1e-5 and serr <= 1e-4
+          and err <= E2E_GRAD_BAR,
+          "one e2e step on the card against the CPU: loss within rtol 1e-4, "
+          "updated gamma within 1e-5 relative, BatchNorm statistics within "
+          "1e-4 relative, gradient within %.1e relative" % E2E_GRAD_BAR)
+    check(err_tf32 > E2E_GRAD_BAR, "the TF32 control fails the gradient bar "
+          "(%.3e > %.1e)" % (err_tf32, E2E_GRAD_BAR))
+    return {"step_loss": [lc, lp], "step_gamma": [gc, gp_],
+            "step_grad_rel_diff": err, "step_grad_rel_diff_tf32": err_tf32,
+            "step_bn_max_rel_diff": serr, "cpu_step_s": cpu_s}
+
+
+def e2e_step_split(dev, gp, grid, batch, n=3):
+    """The card's training step on ``batch`` cut at the CNN's features, each
+    part ended by a device sync: the batch's upload, the CNN forward, the
+    head forward (pair sums, mapping, BP, posterior, loss), the head
+    backward (to the features and gamma) and the CNN backward. Median
+    seconds of ``n`` steps after one."""
+    import torch
+
+    from raynet_tpu_torch.models.losses import emd
+    from raynet_tpu_torch.train.train_e2e import (
+        batch_to_device,
+        build_end_to_end_training,
+        patch_features,
+        raynet_head,
+    )
+
+    state, _, _ = build_end_to_end_training(
+        27, gp, grid, lr=1e-3, gamma=0.05, train_with_gamma=True,
+        bp_iterations=3, device=dev)
+    parts = []
+    for _ in range(n + 1):
+        clock = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            clock.append(time.perf_counter())
+
+        t = batch_to_device(batch, dev)
+        mark()
+        f = patch_features(state.model, t["X"])
+        mark()
+        S, _ = raynet_head(f, state.gamma, t["points"],
+                           t["ray_voxel_indices"], t["ray_voxel_count"],
+                           t["bbox"], grid)
+        loss = emd(t["y"], S).mean()
+        mark()
+        g_f, _ = torch.autograd.grad(loss, [f, state.gamma],
+                                     retain_graph=True)
+        mark()
+        f.backward(g_f)
+        mark()
+        parts.append(np.diff(clock))
+    names = ("upload", "cnn_forward", "head_forward", "head_backward",
+             "cnn_backward")
+    return dict(zip(names, np.median(parts[1:], axis=0).tolist()))
+
+def trace_step(check, dev, gp, grid, batch):
+    """One training step on ``batch`` (after one untraced) under
+    ``utils.profiling.trace``: the device's busy share of the step and the
+    eight device operations with the most time."""
+    import torch
+
+    from raynet_tpu_torch.train.train_e2e import build_end_to_end_training
+    from raynet_tpu_torch.utils import profiling
+
+    state, train_fn, _ = build_end_to_end_training(
+        27, gp, grid, lr=1e-3, gamma=0.05, train_with_gamma=True,
+        bp_iterations=3, device=dev)
+    float(train_fn(state, batch)[1]["loss"])
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            with torch.profiler.record_function("training step"):
+                float(train_fn(state, batch)[1]["loss"])
+        events = profiling.read_trace(os.path.join(tmp, profiling.TRACE_NAME))
+    intervals = profiling.device_intervals(events)
+    window = profiling.annotation_window(events, "training step")
+    busy = profiling.device_busy_share([iv[1:] for iv in intervals], window)
+    by_name = {}
+    for name, t_start, t_end in intervals:
+        by_name[name] = by_name.get(name, 0.0) + (t_end - t_start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    check(len(intervals) > 0, "the traced step holds %d device operations"
+          % len(intervals))
+    log("  traced step: window %.1f ms, device busy %.4f, idle %.4f; %d "
+        "device operations, %.1f ms of device time"
+        % ((window[1] - window[0]) / 1e3, busy, 1 - busy, len(intervals),
+           sum(by_name.values()) / 1e3))
+    for name, us in top:
+        log("  %10.3f ms  %s" % (us / 1e3, name[:110]))
+    return {"trace_window_ms": (window[1] - window[0]) / 1e3,
+            "trace_busy_share": busy,
+            "trace_top8_ms": {n: us / 1e3 for n, us in top}}
+
+def phase_train(check, dev, small, counters):
+    """Phase 14: raynet_train_torch on the card at the JAX CLI's widths on
+    the rig ``small`` with a cube GT mesh, resumed from iteration 2's
+    checkpoint, its weight file read by raynet_forward_torch, K3's rows
+    mode counted exactly (one launch per batch) and held to its plain
+    version on a batch, the card's step alone, and one step against the
+    CPU's. Returns (summary, K3 rows launches of the two CLI runs)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from raynet_tpu_torch.common.dataset import RestrepoDataset
+    from raynet_tpu_torch.common.generation_parameters import (
+        GenerationParameters,
+    )
+    from raynet_tpu_torch.common.sampling_schemes import make_sampling_scheme
+    from raynet_tpu_torch.models.convert import read_cnn_weights
+    from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
+    from raynet_tpu_torch.ops.ray_marching import (
+        flatten_voxel_indices,
+        voxel_traversal_flat,
+        voxel_traversal_flat_reference,
+    )
+    from raynet_tpu_torch.scripts import forward_pass as cli
+    from raynet_tpu_torch.scripts import train_raynet
+    from raynet_tpu_torch.tools import roofline
+    from raynet_tpu_torch.tools.time_kernels import time_ms
+    from raynet_tpu_torch.train.batch_provider import RayNetBatchProvider
+    from raynet_tpu_torch.train.sample import RayNetRandomSampleGenerator
+    from raynet_tpu_torch.train.train_e2e import build_end_to_end_training
+
+    h, w = small.image_shape
+    iters, grid, M, rays = (E2E["iterations"], E2E["grid"], E2E["M"],
+                            E2E["rays"])
+    out = {}
+    log("== 14. raynet_train_torch on the card: simple_cnn, D = %d, 4 "
+        "neighbours, 11x11x3 patches, grid %s, M = %d, %d rays a batch, 3 "
+        "BP iterations, trainable gamma from 0.05, EMD, Adam 1e-3; the "
+        "%dx%d rig with a cube GT mesh, %d iterations"
+        % (E2E["D"], "x".join(map(str, grid)), M, rays, w, h, iters))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_restrepo_scene(small, os.path.join(tmp, "data"))
+        write_cube_mesh(os.path.join(data, "scene_1", "gt_mesh.obj"), 3.0, 41)
+        root = os.path.join(tmp, "runs")
+        os.makedirs(root)
+
+        def train(iterations, *more):
+            printed = io.StringIO()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                train_raynet.main([data, data, root, "--device", str(dev),
+                                   "--iterations", str(iterations)]
+                                  + e2e_flags() + list(more))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return wall, printed.getvalue(), {
+                k: c.launches for k, c in counters.items()}
+
+        torch.cuda.synchronize(dev)  # sets up the device before its stats
+        torch.cuda.reset_peak_memory_stats(dev)
+        wall, printed, launches = train(iters)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        (exp,) = [os.path.join(root, d) for d in os.listdir(root)]
+        with open(os.path.join(exp, "train_statistics.txt")) as f:
+            lines = f.read().split("\n")[1:-1]
+        losses = [float(l.split()[1]) for l in lines]
+        gammas = [float(l.split()[2]) for l in lines]
+        splits = _iteration_splits(printed)
+        final = read_cnn_weights(os.path.join(exp, "weights",
+                                              "weights.final.msgpack"))
+        ckpt = torch.load(os.path.join(exp, "checkpoints", "2", "state.pt"),
+                          map_location="cpu", weights_only=True)
+        g2 = float(ckpt["gamma"])
+        log("  CLI %.3f s for %d iterations and the validation batch; peak "
+            "device memory %.2f GB; losses %s; gamma by iteration %s, after "
+            "2 steps %.7f" % (wall, iters, peak_gb,
+                              ["%.6f" % v for v in losses],
+                              ["%.6f" % v for v in gammas], g2))
+        for i, (draw, fin, calls, st) in enumerate(splits):
+            log("  iteration %d: drawing samples %.3f s, finishing them (K3) "
+                "%.3f s in %d launch(es), the step %.3f s"
+                % (i, draw, fin, calls, st))
+        expect = {k: (iters + 1) * (k == "voxel_traversal_flat")
+                  for k in counters}
+        check(launches == expect and [s[2] for s in splits]
+              == [1] * iters,
+              "K3's rows mode launched once per batch (%d training batches "
+              "and the validation batch), no other kernel: %s"
+              % (iters, launches))
+        check(len(losses) == iters and bool(np.isfinite(losses).all())
+              and all(1e-5 <= g <= 1 - 1e-5 for g in gammas + [g2])
+              and g2 != 0.05 and gammas[0] == 0.05,
+              "%d finite losses; gamma inside [1e-5, 1 - 1e-5] and moved "
+              "from 0.05" % iters)
+        check(all(os.path.isfile(os.path.join(exp, "weights", n)) for n in
+                  ("weights.2.msgpack", "weights.final.msgpack"))
+              and os.path.getsize(os.path.join(exp, "val_loss.txt")) > 0,
+              "weights.2 and weights.final written, a validation loss logged")
+
+        # the weight file read back by raynet_forward_torch --weight_file
+        fe = FeatureExtractor.from_weights(
+            "simple_cnn", os.path.join(exp, "weights",
+                                       "weights.final.msgpack"),
+            device="cpu")
+        same = all(torch.equal(v, final[k])
+                   for k, v in fe.model.state_dict().items()
+                   if "num_batches" not in k)
+        pred = os.path.join(tmp, "pred")
+        cli.main([data, pred, "--scene_idx", "0", "--start_end", "0,1",
+                  "--forward_pass_factory", "multi_view_cnn",
+                  "--depth_planes", "32", "--weight_file",
+                  os.path.join(exp, "weights", "weights.final.msgpack"),
+                  "--device", str(dev)])
+        dm = np.load(os.path.join(pred, "depth_000.npy"))
+        check(same and dm.shape == (h, w) and bool(np.isfinite(dm).all())
+              and (dm > 0).mean() > 0.1,
+              "weights.final.msgpack holds the trained CNN and "
+              "raynet_forward_torch --weight_file maps it (%s, nonzero %.4f)"
+              % (dm.shape, (dm > 0).mean()))
+
+        # --resume from iteration 2's checkpoint
+        r_wall, r_printed, r_launches = train(iters, "--resume", exp)
+        with open(os.path.join(exp, "train_statistics.txt")) as f:
+            n_lines = len(f.read().strip().split("\n"))
+        with open(os.path.join(exp, "val_loss.txt")) as f:
+            n_val = len(f.read().strip().split("\n"))
+        check("resumed from checkpoint at iteration 2" in r_printed
+              and n_lines == 1 + iters + 1 and n_val == 2
+              and r_launches["voxel_traversal_flat"] == 2,
+              "--resume continues at iteration 2 and appends to the logs "
+              "(%d statistics lines, %d validation lines, K3 rows %d "
+              "launches, %.3f s)" % (n_lines, n_val,
+                                     r_launches["voxel_traversal_flat"],
+                                     r_wall))
+        out.update(cli_s=wall, resume_cli_s=r_wall, peak_device_gb=peak_gb,
+                   losses=losses, gammas=gammas, gamma_after_2=g2,
+                   iterations=[dict(zip(("draw_s", "finish_s", "launches",
+                                         "step_s"), s)) for s in splits],
+                   launches=launches)
+        rows = launches["voxel_traversal_flat"] + r_launches[
+            "voxel_traversal_flat"]
+
+        # a fixed batch: its traversal against the plain version, the
+        # card's step alone on it, and 64 of its rays on the CPU
+        gp = GenerationParameters(
+            depth_planes=E2E["D"], neighbors=4, patch_shape=(11, 11, 3),
+            grid_shape=np.array(grid, np.int32),
+            max_number_of_marched_voxels=M,
+            sampling_type="sample_points_in_bbox")
+        sg = RayNetRandomSampleGenerator(
+            make_sampling_scheme("sample_in_bbox", gp, device=dev), gp, [0],
+            [], [], window=2, rng=np.random.RandomState(0), device=dev)
+        provider = RayNetBatchProvider(RestrepoDataset(data, device=dev), sg)
+        batch = provider.get_batch_of_rays(rays)
+        log("  a fixed batch of %d rays: drawing %.3f s, finishing %.3f s"
+            % (rays, provider.timings["draw_s"],
+               provider.timings["finish_s"]))
+        f32 = {k: torch.as_tensor(batch[k], device=dev)
+               for k in ("bbox", "points")}
+        flat, cnt = voxel_traversal_flat_reference(
+            f32["bbox"], f32["points"][:, 0, :3].contiguous(),
+            f32["points"][:, -1, :3].contiguous(), grid, M)
+        got = flatten_voxel_indices(torch.as_tensor(
+            batch["ray_voxel_indices"], device=dev), grid)
+        check(bool(torch.equal(cnt.cpu(), torch.as_tensor(
+            batch["ray_voxel_count"]))) and bool(torch.equal(got, flat)),
+              "the batch's traversal (K3 rows) equals the plain version's: "
+              "counts and (%d, %d) indices; mean count %.1f"
+              % (rays, M, float(cnt.float().mean())))
+        # K3 rows alone at the training batch's shape, beside its bound
+        starts = f32["points"][:, 0, :3].contiguous()
+        ends = f32["points"][:, -1, :3].contiguous()
+        k3 = {"ms": time_ms(lambda: voxel_traversal_flat(
+                  f32["bbox"], starts, ends, grid, M)),
+              "plain_ms": time_ms(lambda: voxel_traversal_flat_reference(
+                  f32["bbox"], starts, ends, grid, M), repeats=3),
+              "rays": rays, "M": M, "visits": int(cnt.sum())}
+        k3["bound_ms"], k3["bound_by"] = roofline.bound(
+            roofline.voxel_traversal_cost(rays, M, k3["visits"]))
+        log("  K3 rows on the batch: %.4f ms (median of 7 one-launch "
+            "CUDA-event runs), plain %.3f ms; bound %.5f ms (%s; %d visits)"
+            % (k3["ms"], k3["plain_ms"], k3["bound_ms"], k3["bound_by"],
+               k3["visits"]))
+        out["k3_rows_batch"] = k3
+
+        state, train_fn, _ = build_end_to_end_training(
+            27, gp, grid, lr=1e-3, gamma=0.05, train_with_gamma=True,
+            bp_iterations=3, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        n = 5
+        for i in range(n + 2):
+            if i == 2:
+                t0 = time.perf_counter()
+            float(train_fn(state, batch)[1]["loss"])
+        alone_ms = (time.perf_counter() - t0) / n * 1e3
+        step_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        log("  the card's step alone on the fixed batch: %.2f ms (%.0f "
+            "rays/s), the mean of %d after 2; peak device memory %.2f GB"
+            % (alone_ms, rays / alone_ms * 1e3, n, step_peak))
+        del state, train_fn
+        split = e2e_step_split(dev, gp, grid, batch)
+        log("  the step cut at the CNN's features, median of 3 (s): %s; "
+            "the head (pair sums, mapping, BP, posterior) %.3f of it"
+            % (", ".join("%s %.4f" % kv for kv in split.items()),
+               (split["head_forward"] + split["head_backward"])
+               / sum(split.values())))
+        out.update(step_split_s=split)
+        out.update(trace_step(check, dev, gp, grid, batch))
+        out.update(step_alone_ms=alone_ms,
+                   step_alone_rays_per_s=rays / alone_ms * 1e3,
+                   step_peak_device_gb=step_peak)
+        k = E2E["cpu_rays"]
+        small_batch = {name: (v[:, :k] if name == "X" else
+                              v if name in ("bbox", "scene_idx") else v[:k])
+                       for name, v in batch.items()}
+        out.update(e2e_step_against_cpu(check, dev, small_batch))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("  phase 14: %.1f s" % out["phase_s"])
+    return out, rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -1716,6 +2143,8 @@ def main(argv=None):
         check, dev, RingScene(6, 150, 200, 2750.0 / 8, angle_origin=1,
                               seed=0), counters)
     pretraining = phase_pretrain(check, dev, small)
+    # 14. end-to-end training on phase 7's rig
+    training, train_rows_launches = phase_train(check, dev, small, counters)
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "raynet_tpu"))
@@ -1757,11 +2186,14 @@ def main(argv=None):
                    k2["message"]["max_abs_err"]),
                times["K2 message"], times["K2 message image"]),
         # K3 in its two modes: the rows mode is launched by ops.backends
-        # (phase 11), the voxel-depth mode by the voxel-space pass
+        # (phase 11) and once per batch by end-to-end training (phase 14),
+        # the voxel-depth mode by the voxel-space pass
         kernel("voxel_traversal_flat", "traversal.cu",
                "raynet_tpu/ops/pallas/traversal.py:28",
-               rows_launches, k3_err, times["K3"],
-               times["K3 image"], mode="rows"),
+               rows_launches + train_rows_launches, k3_err, times["K3"],
+               times["K3 image"], mode="rows",
+               training_batch={k: training["k3_rows_batch"][k] for k in (
+                   "ms", "plain_ms", "bound_ms", "bound_by", "rays")}),
         kernel("voxel_argmax_depth", "traversal.cu",
                "raynet_tpu/ops/pallas/traversal.py:28",
                total_launches["voxel_argmax_depth"],
@@ -1788,7 +2220,8 @@ def main(argv=None):
                       "passes": results,
                       "probes": p2, "trace": traced,
                       "host_store": host_store, "evaluation": evaluation,
-                      "hartmann_fp": hartmann, "pretraining": pretraining},
+                      "hartmann_fp": hartmann, "pretraining": pretraining,
+                      "training": training},
                      allow_nan=False))
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(smi)

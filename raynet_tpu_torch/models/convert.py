@@ -10,7 +10,11 @@ or under the flax class of a similarity net (``SimpleCNN_0``,
 ``HartmannCNN_0``, ...), so the weight files of the JAX package's
 ``raynet_pretrain`` load into a FeatureExtractor too.
 ``similarity_state_dict_from_flax`` and ``hartmann_state_dict_from_flax``
-map whole similarity nets; ``flax_from_*`` go the other way.
+map whole similarity nets; ``flax_from_*`` go the other way. For a CNN
+alone, ``state_dict_from_flax`` / ``flax_from_cnn_state_dict`` map
+``{"params", "batch_stats"}`` (the JAX package's ``FeatureExtractor`` and
+``raynet_train`` weight files) both ways, and ``read_cnn_weights`` /
+``write_cnn_weights`` read and write such a file.
 ``read_flax_msgpack`` / ``write_flax_msgpack`` read and write the files of
 ``flax.serialization.to_bytes`` without flax.
 """
@@ -115,6 +119,25 @@ def _flax_cnn(sd, prefix):
         params = {"_ConvBNStack_0": params}
         stats = {"_ConvBNStack_0": stats} if stats else {}
     return params, stats
+
+
+def flax_from_cnn_state_dict(sd):
+    """A CNN module's state_dict -> the flax ``{"params", "batch_stats"}``
+    of the JAX package's module of the same factory."""
+    params, stats = _flax_cnn(sd, "")
+    return {"params": params, "batch_stats": stats}
+
+
+def read_cnn_weights(path):
+    """The state_dict of a CNN from a flax msgpack file (a CNN's, or a
+    similarity net's, whose CNN is taken)."""
+    return state_dict_from_flax(read_flax_msgpack(path))
+
+
+def write_cnn_weights(path, sd):
+    """Write a CNN's state_dict as the JAX package's weight file of that
+    CNN (``flax.serialization.to_bytes({"params", "batch_stats"})``)."""
+    write_flax_msgpack(path, flax_from_cnn_state_dict(sd))
 
 
 def flax_from_similarity_state_dict(sd, cnn_name):

@@ -1,8 +1,8 @@
 """Voxel-grid construction and points along rays for the data layer, and
 the device check of the port's entry points.
 
-``point_from_depth`` and ``get_voxel_grid`` are copies of
-``raynet_tpu/utils/generic_utils.py``'s.
+``point_from_depth``, ``point_to_voxel`` and ``get_voxel_grid`` are copies
+of ``raynet_tpu/utils/generic_utils.py``'s.
 """
 import numpy as np
 import torch
@@ -34,6 +34,13 @@ def point_from_depth(camera_center, direction, depth):
     assert direction.shape == (3, 1)
     a_norm = direction / np.sqrt(np.sum(direction ** 2))
     return a_norm * depth + camera_center
+
+
+def point_to_voxel(p, bbox_origin, bin_size):
+    """Voxel index containing a (3, 1) point (floor semantics), int32."""
+    assert p.shape == (3, 1)
+    v = (p - bbox_origin) / bin_size
+    return np.floor(v).astype(np.int32)
 
 
 def get_voxel_grid(bbox, grid_shape):
