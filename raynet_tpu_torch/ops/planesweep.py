@@ -81,13 +81,14 @@ def _plane_sweep_cuda(features, P, ray_start, ray_end, padding, height,
     if return_cells:
         cells = torch.empty((n, D, V, 2), dtype=torch.int32, device=device)
     lib = cuda_build.library()
-    with torch.cuda.device(device):
+    index = features.get_device()
+    with cuda_build.device_guard(index):
         err = lib.raynet_plane_sweep_scores(
             features.data_ptr(), is_bf16, P.data_ptr(),
             ray_start.data_ptr(), ray_end.data_ptr(), scores.data_ptr(),
             None if cells is None else cells.data_ptr(),
             V, Hf, Wf, F, n, D, int(padding), int(height), int(width),
-            cuda_build.stream_ptr(device),
+            cuda_build.raw_stream(index),
         )
     cuda_build.check(err, "raynet_plane_sweep_scores")
     plane_sweep_scores.launches += 1

@@ -10,7 +10,9 @@ and P2 (f32 product on the tensor cores, "rna" mode, 128^3 and, row "P2
 1024", 1024^3), and beside P1 and P2 the one PyTorch call that computes
 the same. K1, K2 and K3 (both modes) are timed again on one whole image
 (the 1,920,000 rays of view 0, rows "... image"), as the passes launch
-them; K2 updates a message store in place, as the raynet pass does. Each
+them, K1 also with the features in float32 ("K1 image f32"), as the
+CLI's passes sweep them; K2 updates a message store in place, as the
+raynet pass does. Each
 time ("ms") is the median over ``--repeats`` CUDA-event runs of
 ``--iters`` launches each, per launch, after a warm-up. Bounds come from
 ``roofline`` with the counts of the rays at hand. ``chip_smoke.py`` takes
@@ -33,11 +35,16 @@ A call whose ``host_us`` is above its ``device_ms`` is bound by the host.
 
     python -m raynet_tpu_torch.tools.time_kernels [--rays 65536]
         [--iters 10] [--repeats 5] [--plain] [--probes] [--host-steps]
+        [--parent DIR ...]
 
 ``--plain`` also times each plain PyTorch version on the card, on the
 batch only (K2's and K3's take ~0.1-0.3 s a batch). ``--probes`` times
 only P1 and P2 (no rig). ``--host-steps`` also times each step of the
-probes' launch path on the host (``host_steps``). Needs a CUDA card and
+probes' launch path on the host (``host_steps``). ``--parent DIR``
+(another checkout of the repository; repeatable) also times K1 on the
+whole image as DIR builds it, beside this tree's, with bf16 and float32
+features, in ``ROUNDS`` rounds of alternating order (``k1_against``).
+Needs a CUDA card and
 exits nonzero without one. The last line is a JSON object of the rows and
 the card.
 """
@@ -53,6 +60,7 @@ import types
 import numpy as np
 import torch
 
+from ..ops import cuda_build
 from . import roofline
 
 N_RAYS = 65536
@@ -129,6 +137,7 @@ def time_ms(fn, iters=1, repeats=7, warmup=2):
 
 
 HOST_CALLS = 1000
+ROUNDS = 4  # of the --parent comparison
 DEVICE_CALLS = 100
 
 
@@ -331,6 +340,13 @@ def time_all(rig, iters, repeats, plain):
         n_img, f.shape[0], D, f.shape[3], f.element_size(), n_rows),
         lambda: plane_sweep_scores(*ps_args), None, feature_rows=n_rows,
         rays=n_img)
+    # the same in float32, as the CLI's passes sweep their features
+    f32_args = (f.float(),) + ps_args[1:]
+    row("K1 image f32", roofline.plane_sweep_cost(
+        n_img, f.shape[0], D, f.shape[3], 4, n_rows),
+        lambda: plane_sweep_scores(*f32_args), None, feature_rows=n_rows,
+        rays=n_img)
+    del f32_args
     idx, counts = voxel_traversal_flat(rig.bbox, rs, re, GRID, M)
     visits, n_cells = roofline.march_counts(idx, counts)
     del idx, counts
@@ -345,6 +361,65 @@ def time_all(rig, iters, repeats, plain):
     _k2_rows(row, " image", rig, rs, re, S, visits, n_cells)
     del S, rs, re
     return rows + time_probes(f.device, iters, repeats, plain)
+
+
+def k1_launcher(lib, args):
+    """A function that launches ``lib``'s K1 (``raynet_plane_sweep_scores``
+    of a kernel library, this tree's or another checkout's) once on K1's
+    wrapper arguments ``args``, through the wrapper's ctypes call, into one
+    preallocated score buffer, and returns the buffer."""
+    features, P, rs, re, padding, H, W, n_planes = args
+    V, Hf, Wf, F = features.shape
+    n = rs.shape[0]
+    out = torch.empty((n, n_planes), dtype=torch.float32,
+                      device=features.device)
+    argv = (features.data_ptr(), int(features.dtype == torch.bfloat16),
+            P.data_ptr(), rs.data_ptr(), re.data_ptr(), out.data_ptr(), None,
+            V, Hf, Wf, F, n, n_planes, int(padding), int(H), int(W),
+            cuda_build.raw_stream(features.get_device()))
+
+    def launch():
+        cuda_build.check(lib.raynet_plane_sweep_scores(*argv),
+                         "raynet_plane_sweep_scores")
+        return out
+    launch.args = args  # alive while the kernel reads their memory
+    return launch
+
+
+def round_orders(names, rounds):
+    """The order of ``names`` in each of ``rounds`` rounds: forward, then
+    backward, and so on, so that no name always runs first or last."""
+    return [list(names) if k % 2 == 0 else list(names)[::-1]
+            for k in range(rounds)]
+
+
+def k1_against(rig, parents, repeats, rounds=ROUNDS):
+    """K1 on the whole image of view 0 as this tree builds it (``this``)
+    and as each of ``parents`` ({label: another checkout's directory})
+    builds it, with the rig's bf16 features and with them in float32:
+    {"<label> <dtype>": {"ms": [a ``time_ms`` median of ``repeats`` one-
+    launch runs per round], "max_abs_diff": from this tree's scores}}, the
+    builds timed in ``round_orders``."""
+    libs = {"this": cuda_build.library()}
+    for label, checkout in parents.items():
+        libs[label] = cuda_build.load_library(
+            os.path.join(checkout, "raynet_tpu_torch", "csrc"))
+    rs, re = image_segments(rig)
+    runs = {}
+    for dtype, features in (("bf16", rig.features),
+                            ("f32", rig.features.float())):
+        args = (features, rig.P, rs, re, PADDING, rig.H, rig.W, D)
+        for label, lib in libs.items():
+            runs["%s %s" % (label, dtype)] = k1_launcher(lib, args)
+    out = {}
+    for name, launch in runs.items():
+        ref = runs["this " + name.split()[-1]]().clone()
+        diff = (launch() - ref).abs().nan_to_num(nan=float("inf")).max()
+        out[name] = {"ms": [], "max_abs_diff": float(diff)}
+    for order in round_orders(runs, rounds):
+        for name in order:
+            out[name]["ms"].append(time_ms(runs[name], 1, repeats))
+    return out
 
 
 def time_probes(dev, iters, repeats, plain):
@@ -469,7 +544,12 @@ def main(argv=None):
     ap.add_argument("--host-steps", action="store_true",
                     help="also time each step of the probes' launch path "
                          "on the host")
+    ap.add_argument("--parent", metavar="DIR", action="append", default=[],
+                    help="another checkout (repeatable): also time its K1 "
+                         "on the whole image beside this tree's")
     args = ap.parse_args(argv)
+    if args.parent and args.probes:
+        ap.error("--parent times K1 on the rig, which --probes leaves out")
     if not torch.cuda.is_available():
         print("time_kernels: needs a CUDA card "
               "(torch.cuda.is_available() is False)", file=sys.stderr)
@@ -485,10 +565,20 @@ def main(argv=None):
     steps = host_steps(device) if args.host_steps else None
     for name, us in (steps or {}).items():
         print("host step %-40s %8.2f us" % (name, us))
+    against = None
+    if args.parent:
+        parents = {"parent%d" % i: d for i, d in enumerate(args.parent)}
+        for label, checkout in parents.items():
+            print("%s: %s" % (label, checkout))
+        against = k1_against(rig, parents, args.repeats)
+        for name, r in against.items():
+            print("K1 image %-12s %s ms; max |diff| %.3e" % (
+                name, " ".join("%.4f" % t for t in r["ms"]),
+                r["max_abs_diff"]))
     print(json.dumps({
         "rays": args.rays, "iters": args.iters, "repeats": args.repeats,
         "device": torch.cuda.get_device_name(device), "kernels": rows,
-        "host_steps_us": steps}))
+        "host_steps_us": steps, "k1_against": against}))
     return 0
 
 

@@ -79,15 +79,28 @@ def _rig(device, ref=1, shape=(H, W), n=None):
     return P, center, bbox, rs, re
 
 
+@pytest.mark.parametrize("segments", ["bbox", "shifted"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D, F", [(8, 32), (32, 32), (40, 16), (3, 64)])
-def test_plane_sweep_kernel_matches_plain(cuda, dtype, D, F):
+@pytest.mark.parametrize("V, D, F", [
+    (5, 8, 32), (5, 32, 32), (5, 40, 16), (5, 3, 64), (5, 2, 8), (5, 33, 24),
+    (5, 64, 56), (5, 128, 64), (2, 32, 32), (32, 32, 32), (32, 33, 8),
+])
+def test_plane_sweep_kernel_matches_plain(cuda, dtype, V, D, F, segments):
+    """D past one warp's 32 planes, F whose rows take 1 to 16 lanes
+    (rounded up to a power of two), 2 and 32 views (the rig's 5 cameras
+    repeated). ``shifted`` moves the segments (4, -4, 0) off the bbox, so
+    that ~45% of the cells take the both-zero sentinel (0-0.25% in the
+    bbox)."""
     P, _, _, rs, re = _rig(cuda)
+    P = P[torch.arange(V, device=cuda) % P.shape[0]].contiguous()
+    if segments == "shifted":
+        shift = torch.tensor([4.0, -4.0, 0.0], device=cuda)
+        rs, re = rs + shift, re + shift
     g = torch.Generator(device="cpu").manual_seed(D * F)
     # scaled like the CNN's features: with N(0, 1) values and F=64 the
     # closed-form pair sum subtracts two ~300-sized sums and the
     # summation order alone moves the scores by ~1e-5
-    feats = 0.25 * torch.randn((5, H + PAD + 1, W + PAD + 1, F), generator=g)
+    feats = 0.25 * torch.randn((V, H + PAD + 1, W + PAD + 1, F), generator=g)
     feats = feats.to(device=cuda, dtype=dtype)
     ps.plane_sweep_scores.launches = 0
     S, cells = ps.plane_sweep_scores(feats, P, rs, re, PAD, H, W, D,
@@ -96,14 +109,19 @@ def test_plane_sweep_kernel_matches_plain(cuda, dtype, D, F):
     S_ref = ps.plane_sweep_scores_reference(feats, P, rs, re, PAD, H, W, D)
     cells_ref = ps.plane_sweep_cells_reference(P, rs, re, PAD, H, W, D)
     torch.cuda.synchronize()
+    if segments == "shifted":
+        sentinel = float((cells_ref == 0).all(dim=-1).float().mean())
+        assert 0.1 < sentinel < 0.9
     assert torch.equal(cells, cells_ref)
     torch.testing.assert_close(S, S_ref, rtol=1e-5, atol=1e-6)
 
 
-def test_plane_sweep_kernel_on_a_ragged_batch(cuda):
-    """65,537 rays (one past a multiple of the 64-ray block) at the main
-    path's D=32, F=32 bf16: the last warp holds one ray."""
-    shape, n = (300, 400), 65537
+@pytest.mark.parametrize("n", [65537, 65539])
+def test_plane_sweep_kernel_on_a_ragged_batch(cuda, n):
+    """n one and three past a multiple of the 4-ray block (a warp a ray)
+    at the main path's D=32, F=32 bf16: the last block holds one ray, or
+    all but one."""
+    shape = (300, 400)
     P, _, _, rs, re = _rig(cuda, shape=shape, n=n)
     g = torch.Generator(device="cpu").manual_seed(11)
     feats = 0.25 * torch.randn((5, 300 + PAD + 1, 400 + PAD + 1, 32),

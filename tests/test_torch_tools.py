@@ -122,6 +122,17 @@ def test_entry_points_exit_nonzero_without_a_card(main, capsys):
     assert "needs a CUDA card" in capsys.readouterr().err
 
 
+def test_round_orders_alternate():
+    assert time_kernels.round_orders(["a", "b", "c"], 3) == [
+        ["a", "b", "c"], ["c", "b", "a"], ["a", "b", "c"]]
+
+
+def test_time_kernels_parent_needs_the_rig(capsys):
+    with pytest.raises(SystemExit):
+        time_kernels.main(["--probes", "--parent", "elsewhere"])
+    assert "--parent" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("case", probe_dma_align.CASES,
                          ids=lambda c: "%s-%d-%d-%d" % c)
 def test_box_rows_library_computes_p1s_rows(case):
