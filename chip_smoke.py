@@ -142,14 +142,33 @@ order, every phase failing loudly (nonzero exit):
    the card's step alone (ms, rays/s), and one step on 64 of its rays on
    the card and on the CPU: loss within rtol 1e-4, the updated gamma within
    1e-5 relative, the gradient's relative L2 distance within
-   ``E2E_GRAD_BAR``, which the same step with TF32 on must exceed.
+   ``E2E_GRAD_BAR``, which the same step with TF32 on must exceed;
+15. (a) a Keras checkpoint on the card: an in-memory Keras tree of a
+   seeded simple_cnn in the published checkpoints' layout (the CNN as a
+   sub-model of the siamese net), and a Theano-ordered variant, mapped by
+   ``models.keras_import`` into a FeatureExtractor on the card, its
+   state_dict ``torch.equal`` to the CPU's mapping; the raynet pass on the
+   rig of phase 7 with those weights and again after a ``save_weights`` ->
+   ``load_weights`` msgpack round trip: launches exactly K1 2 and K2 8
+   each, the depth maps agreeing on >= 0.999 of the pixels within 1e-3
+   relative; where h5py is importable, ``raynet_forward_torch --weight_file
+   x.hdf5`` on that rig written to disk, held to the in-memory route the
+   same way (else one line says the .hdf5 read was not run);
+   (b) the training-quality bench (``tools.bench_training_quality``) at
+   bench.py's sizes on the card: bench.py's four metrics with the seconds
+   of each run, beside the JAX package's TPU v5e figures (comparison
+   only), every metric finite, ``pretrain_val_acc`` above chance (1/8),
+   gamma moved by more than 1e-4, K3's rows mode launched once per
+   end-to-end batch and no kernel in pretraining, and the end-to-end step
+   lowering the loss on one fixed 8-ray batch (bench.py's own ratio
+   compares fresh batches and is printed).
    No module of JAX or of the JAX package may have been imported.
 
 The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
 (``time_kernels.kernel_rig``, ``time_kernels.time_all``, ``roofline``).
 The last lines are a JSON summary of the passes, the probes, the trace,
 the host store and the evaluation, the kernels' JSON line (times, bounds,
-launches; K3's rows mode counted in phases 11 and 14), and the card's name and
+launches; K3's rows mode counted in phases 11, 14 and 15), and the card's name and
 power limit before the final JSON line ``{"ok": true, "device": ...}``.
 Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
@@ -1402,6 +1421,265 @@ def phase_train(check, dev, small, counters):
     return out, rows
 
 
+def keras_tree(seed, theano=False):
+    """An in-memory Keras 2 checkpoint (``keras_import.read_keras_tree``'s
+    form) of a simple_cnn with weights from ``seed``, in the layout of the
+    published RayNet checkpoints (the CNN as a sub-model of the siamese
+    net: ``model_weights/<submodel>/<layer>/<weight>:0``); ``theano``:
+    conv kernels in Theano's OIHW order instead of HWIO."""
+    rng = np.random.RandomState(seed)
+    datasets = {}
+    cin = 3
+    for i in range(1, 6):
+        kernel = (rng.randn(3, 3, cin, 32) / np.sqrt(9.0 * cin)).astype(
+            np.float32)
+        layer = {
+            "conv2d_%d" % i: {
+                "kernel": kernel.transpose(3, 2, 0, 1) if theano else kernel,
+                "bias": 0.1 * rng.randn(32)},
+            "batch_normalization_%d" % i: {
+                "gamma": 0.5 + rng.rand(32), "beta": 0.1 * rng.randn(32),
+                "moving_mean": 0.1 * rng.randn(32),
+                "moving_variance": 0.5 + rng.rand(32)},
+        }
+        for name, weights in layer.items():
+            for w, arr in weights.items():
+                datasets["model_weights/sequential_1/%s/%s:0" % (name, w)] = (
+                    np.asarray(arr, np.float32))
+        cin = 32
+    return {"datasets": datasets,
+            "layer_names": {"": None, "model_weights": None}}
+
+
+def phase_keras(check, dev, small, gp, counters):
+    """Phase 15a: a Keras checkpoint on the card. An in-memory Keras tree of
+    a seeded simple_cnn (and its Theano-ordered variant) mapped by
+    ``keras_import`` into a FeatureExtractor on the card, its state_dict
+    ``torch.equal`` to the CPU's mapping; the raynet pass on the rig
+    ``small`` with those weights and again after a ``save_weights`` ->
+    ``load_weights`` msgpack round trip (launches counted exactly, the
+    depth maps held to each other); where h5py is importable,
+    ``raynet_forward_torch --weight_file x.hdf5`` on the rig written to
+    disk. Returns a summary."""
+    import importlib.util
+
+    import torch
+
+    from raynet_tpu_torch.inference import RayNetForwardPass
+    from raynet_tpu_torch.models.cnn import cnn_factory
+    from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
+    from raynet_tpu_torch.models.keras_import import keras_state_dict_for_cnn
+    from raynet_tpu_torch.scripts import forward_pass as cli
+    from raynet_tpu_torch.tools.time_kernels import D, GRID, M, N_RAYS
+
+    h, w = small.image_shape
+    log("== 15a. Keras checkpoint on the card: a seeded simple_cnn as the "
+        "published checkpoints lay it out, the raynet pass at %dx%d" % (w, h))
+    out = {}
+    tree = keras_tree(11)
+    cpu_sd = keras_state_dict_for_cnn(tree, cnn_factory("simple_cnn")())
+    theano_sd = keras_state_dict_for_cnn(keras_tree(11, theano=True),
+                                         cnn_factory("simple_cnn")())
+    fe = FeatureExtractor("simple_cnn", seed=1, device=dev)
+    fe.model.load_state_dict(keras_state_dict_for_cnn(tree, fe.model))
+
+    def equal(sd, ref):
+        return list(sd) == list(ref) and all(
+            torch.equal(v.cpu(), ref[k]) for k, v in sd.items())
+
+    check(equal(fe.model.state_dict(), cpu_sd)
+          and next(fe.model.parameters()).device.type == "cuda",
+          "the card's mapped state_dict torch.equal to the CPU's (%d "
+          "tensors)" % len(cpu_sd))
+    check(equal(theano_sd, cpu_sd),
+          "the Theano-ordered (OIHW) variant maps to the same tensors")
+    expect = {k: 0 for k in counters}
+    expect.update(plane_sweep_scores=2,
+                  bp_sweep=2 * (RayNetForwardPass.bp_iterations + 1))
+
+    def raynet(model, label):
+        fp = RayNetForwardPass(model, gp, None, small.image_shape, N_RAYS,
+                               device=dev)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        maps = np.stack(list(fp.forward_pass(small, (0, 2, 1))))
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        log("  %s: raynet pass %.3f s, launches %s" % (label, wall, launches))
+        check(launches == expect, "%s: launches K1 2, K2 8 exactly" % label)
+        check(maps.shape == (2, h, w) and bool(np.isfinite(maps).all())
+              and (maps > 0).mean() > 0.1,
+              "%s: depth maps %s finite, nonzero share %.4f"
+              % (label, maps.shape, (maps > 0).mean()))
+        return maps, wall, launches
+
+    maps_k, out["keras_pass_s"], out["launches"] = raynet(
+        fe, "weights from keras_import")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cnn.msgpack")
+        fe.save_weights(path)
+        fe2 = FeatureExtractor.from_weights("simple_cnn", path, device=dev)
+        check(equal(fe2.model.state_dict(), cpu_sd),
+              "save_weights -> load_weights keeps every tensor")
+        maps_m, out["msgpack_pass_s"], _ = raynet(fe2, "after the msgpack "
+                                                       "round trip")
+        agree = rel_agreement(maps_m, maps_k, 1e-3)
+        out["agreement"] = agree
+        out["identical_share"] = float(np.mean(maps_m == maps_k))
+        check(agree >= 0.999 and bool(np.array_equal(maps_m > 0, maps_k > 0)),
+              "round-trip depth maps agree with the keras_import pass: %.6f "
+              "within 1e-3 relative (bit-identical %.6f), masks identical"
+              % (agree, out["identical_share"]))
+
+        if importlib.util.find_spec("h5py") is None:
+            log("  the .hdf5 read was not run on the card: h5py is not "
+                "installed here")
+            out["hdf5_cli"] = None
+            return out
+        import h5py
+
+        hdf5 = os.path.join(tmp, "published.hdf5")
+        with h5py.File(hdf5, "w") as f:
+            for name, arr in tree["datasets"].items():
+                f.create_dataset(name, data=arr)
+        check(equal(FeatureExtractor.from_weights(
+            "simple_cnn", hdf5, device=dev).model.state_dict(), cpu_sd),
+              "FeatureExtractor.load_weights of the .hdf5 file maps the same "
+              "tensors")
+        data = write_restrepo_scene(small, os.path.join(tmp, "data"))
+        pred = os.path.join(tmp, "pred")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cli.main([data, pred, "--scene_idx", "0",
+                  "--forward_pass_factory", "raynet", "--start_end", "0,2",
+                  "--depth_planes", str(D),
+                  "--grid_shape", ",".join(str(g) for g in GRID),
+                  "--maximum_number_of_marched_voxels", str(M),
+                  "--rays_batch", str(N_RAYS), "--weight_file", hdf5,
+                  "--device", str(dev)])
+        cli_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        maps_c = np.stack([np.load(os.path.join(pred, "depth_%03d.npy" % i))
+                           for i in range(2)])
+    agree = rel_agreement(maps_c, maps_k, 1e-3)
+    out["hdf5_cli"] = {"cli_s": cli_s, "launches": launches,
+                       "agreement": agree,
+                       "identical_share": float(np.mean(maps_c == maps_k))}
+    log("  raynet_forward_torch --weight_file x.hdf5: %.3f s, launches %s"
+        % (cli_s, launches))
+    check(launches == expect, "the CLI launched K1 2, K2 8 exactly")
+    check(maps_c.shape == maps_k.shape and agree >= 0.999
+          and bool(np.array_equal(maps_c > 0, maps_k > 0)),
+          "the CLI's depth maps agree with the in-memory route's: %.6f "
+          "within 1e-3 relative (bit-identical %.6f; K2 adds with float "
+          "atomics), masks identical"
+          % (agree, out["hdf5_cli"]["identical_share"]))
+    return out
+
+
+# bench.py's sizes (bench.py:725)
+QUALITY = {"steps": 2000, "n_train": 1024, "n_val": 256, "iterations": 12}
+# the JAX package's own figures on a TPU v5e (BENCH_r05.json; the e2e pair
+# from ROADMAP.md): printed beside the card's for comparison, not targets
+TPU_QUALITY = {"pretrain_val_acc": 0.3086, "pretrain_val_mde": 0.7617,
+               "e2e_train_loss_ratio": 0.6619, "e2e_gamma_moved": 0.0288}
+
+
+def fixed_batch_losses(dev, steps=12):
+    """The end-to-end step of ``e2e_quality`` taken ``steps`` times on one
+    fixed 8-ray batch of its pipeline: the losses."""
+    from raynet_tpu_torch.common.dataset import RestrepoDataset
+    from raynet_tpu_torch.common.sampling_schemes import make_sampling_scheme
+    from raynet_tpu_torch.scripts.arguments import get_input_output_shapes
+    from raynet_tpu_torch.tools import bench_training_quality as bench
+    from raynet_tpu_torch.train.batch_provider import RayNetBatchProvider
+    from raynet_tpu_torch.train.sample import RayNetSampleGenerator
+    from raynet_tpu_torch.train.train_e2e import build_end_to_end_training
+
+    gp = bench._generation_params(8, gamma_mrf=0.031)
+    with tempfile.TemporaryDirectory() as root:
+        bench.make_textured_scene(root + "/scene_1")
+        sg = RayNetSampleGenerator(
+            make_sampling_scheme("sample_in_bbox", gp, device=dev), gp, [0],
+            *get_input_output_shapes("default")(gp), window=2,
+            rng=np.random.RandomState(0), device=dev)
+        batch = RayNetBatchProvider(RestrepoDataset(root, device=dev),
+                                    sg).get_batch_of_rays(8)
+    state, train_fn, _ = build_end_to_end_training(
+        0, gp, gp.grid_shape, lr=5e-3, gamma=0.031, train_with_gamma=True,
+        bp_iterations=2, device=dev)
+    return [float(train_fn(state, batch)[1]["loss"]) for _ in range(steps)]
+
+
+def phase_quality(check, dev, counters, smi):
+    """Phase 15b: the training-quality bench on the card at bench.py's sizes
+    (``tools.bench_training_quality``): bench.py's four metrics, the seconds
+    of each run, the K3 launches of the end-to-end run. Returns (summary, K3
+    rows launches)."""
+    import torch
+
+    from raynet_tpu_torch.tools import bench_training_quality as bench
+
+    q = QUALITY
+    log("== 15b. training quality on the card (bench.py's sizes): "
+        "pretraining %d steps, %d training and %d validation samples, D = 8; "
+        "end to end %d iterations of 8 rays, 2 BP iterations, gamma from "
+        "0.031" % (q["steps"], q["n_train"], q["n_val"], q["iterations"]))
+    launches = {}
+    seconds = {}
+    results = {}
+    for part, fn, kwargs in (
+            ("pretrain", bench.pretrain_quality,
+             {k: q[k] for k in ("steps", "n_train", "n_val")}),
+            ("e2e", bench.e2e_quality, {"iterations": q["iterations"]})):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[part] = fn(device=dev, **kwargs)
+        torch.cuda.synchronize()
+        seconds[part] = time.perf_counter() - t0
+        launches[part] = {k: c.launches for k, c in counters.items()}
+        log("  %s: %.3f s, %s, launches %s"
+            % (part, seconds[part], results[part], launches[part]))
+    metrics = {k: v for k, (v, _) in bench.quality_metrics(
+        results["pretrain"], results["e2e"]).items()}
+    log("  card: %s" % smi)
+    for name, value in metrics.items():
+        log("  %-22s %.6f (%.3f s); TPU v5e, BENCH_r05, comparison only: %s"
+            % (name, value, seconds[name.split("_")[0]], TPU_QUALITY[name]))
+    check(all(np.isfinite(v) for r in results.values() for v in r.values()),
+          "every quality metric finite")
+    check(metrics["pretrain_val_acc"] > 1.0 / 8,
+          "pretrain_val_acc %.4f above chance, 1/8"
+          % metrics["pretrain_val_acc"])
+    check(metrics["e2e_gamma_moved"] > 1e-4,
+          "gamma moved by %.6f > 1e-4" % metrics["e2e_gamma_moved"])
+    rows = launches["e2e"]["voxel_traversal_flat"]
+    check(not any(launches["pretrain"].values())
+          and rows >= q["iterations"]
+          and all(v == 0 for k, v in launches["e2e"].items()
+                  if k != "voxel_traversal_flat"),
+          "K3's rows mode launched once per e2e batch (%d launches for %d "
+          "batches), no kernel in pretraining" % (rows, q["iterations"]))
+    ratio = metrics["e2e_train_loss_ratio"]
+    log("  bench.py's e2e ratio, last 3 over first 3 iterations (fresh "
+        "8-ray batches): %.4f, the loss %s" % (
+            ratio, "fell" if ratio < 1 else "did not fall"))
+    fixed = fixed_batch_losses(dev)
+    check(bool(np.isfinite(fixed).all())
+          and np.mean(fixed[-3:]) < np.mean(fixed[:3]),
+          "the e2e step lowers the loss on one fixed 8-ray batch: last 3 "
+          "of 12 steps %.5f, first 3 %.5f" % (np.mean(fixed[-3:]),
+                                             np.mean(fixed[:3])))
+    return {"metrics": metrics, "seconds": seconds, "pretrain":
+            results["pretrain"], "e2e": results["e2e"], "launches": launches,
+            "fixed_batch_losses": fixed, "tpu_v5e_bench_r05": TPU_QUALITY,
+            "sizes": q}, rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -2145,6 +2423,10 @@ def main(argv=None):
     pretraining = phase_pretrain(check, dev, small)
     # 14. end-to-end training on phase 7's rig
     training, train_rows_launches = phase_train(check, dev, small, counters)
+    # 15. a Keras checkpoint through the raynet pass on phase 7's rig; the
+    # training-quality bench
+    keras = phase_keras(check, dev, small, gp, counters)
+    quality, quality_rows_launches = phase_quality(check, dev, counters, smi)
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "raynet_tpu"))
@@ -2186,11 +2468,12 @@ def main(argv=None):
                    k2["message"]["max_abs_err"]),
                times["K2 message"], times["K2 message image"]),
         # K3 in its two modes: the rows mode is launched by ops.backends
-        # (phase 11) and once per batch by end-to-end training (phase 14),
-        # the voxel-depth mode by the voxel-space pass
+        # (phase 11) and once per batch by end-to-end training (phases 14
+        # and 15b), the voxel-depth mode by the voxel-space pass
         kernel("voxel_traversal_flat", "traversal.cu",
                "raynet_tpu/ops/pallas/traversal.py:28",
-               rows_launches + train_rows_launches, k3_err, times["K3"],
+               rows_launches + train_rows_launches + quality_rows_launches,
+               k3_err, times["K3"],
                times["K3 image"], mode="rows",
                training_batch={k: training["k3_rows_batch"][k] for k in (
                    "ms", "plain_ms", "bound_ms", "bound_by", "rays")}),
@@ -2221,7 +2504,8 @@ def main(argv=None):
                       "probes": p2, "trace": traced,
                       "host_store": host_store, "evaluation": evaluation,
                       "hartmann_fp": hartmann, "pretraining": pretraining,
-                      "training": training},
+                      "training": training, "keras": keras,
+                      "training_quality": quality},
                      allow_nan=False))
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(smi)

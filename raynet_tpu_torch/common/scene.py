@@ -132,6 +132,9 @@ class Scene:
             int(n) for n in self._get_neighbor_idxs(i, neighbors)
         ]
 
+    def get_random_image(self, rng=np.random):
+        return self.get_image(rng.choice(np.arange(0, self.n_images)))
+
     def get_image_with_neighbors(self, i, neighbors=4):
         return [self.get_image(j) for j in self.get_view_idxs(i, neighbors)]
 

@@ -14,10 +14,12 @@ from .cnn import HartmannSimilarityNet, cnn_factory
 from .convert import (
     flax_from_hartmann_state_dict,
     hartmann_state_dict_from_flax,
+    read_cnn_weights,
     read_flax_msgpack,
-    state_dict_from_flax,
+    write_cnn_weights,
     write_flax_msgpack,
 )
+from .keras_import import keras_state_dict_for_cnn
 
 
 def _as_float_tensor(x, device):
@@ -77,11 +79,21 @@ class FeatureExtractor:
             out = out.to(self.output_dtype)
         return out
 
+    def save_weights(self, path):
+        """Write the CNN as a flax msgpack file, the one the JAX package's
+        ``FeatureExtractor.save_weights`` writes and its ``load_weights``
+        reads."""
+        write_cnn_weights(path, self.model.state_dict())
+
     def load_weights(self, path):
-        """Load a flax msgpack file: the JAX package's
+        """Load a flax msgpack file (the JAX package's
         ``FeatureExtractor.save_weights``, or a weight file of either
-        package's pretraining (the similarity net's CNN is taken)."""
-        sd = state_dict_from_flax(read_flax_msgpack(path))
+        package's pretraining: the similarity net's CNN is taken), or a
+        Keras .hdf5 / .h5 checkpoint (``keras_import``)."""
+        if str(path).endswith((".hdf5", ".h5")):
+            sd = keras_state_dict_for_cnn(path, self.model)
+        else:
+            sd = read_cnn_weights(path)
         self.model.load_state_dict(sd)
         self.model.to(self.device)
 

@@ -207,6 +207,15 @@ def add_device_arguments(parser):
     )
 
 
+def get_actual_sampling_policy(name):
+    """The two sampling policies that ``name`` is a variant of."""
+    if "sample_in_bbox" in name:
+        return "sample_in_bbox"
+    if "sample_in_range" in name:
+        return "sample_in_range"
+    raise NotImplementedError("unsupported sampling policy %r" % (name,))
+
+
 def get_input_output_shapes(name):
     return {
         "default": default_input_output_shape,

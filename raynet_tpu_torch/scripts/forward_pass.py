@@ -44,7 +44,8 @@ def main(argv=None):
         "output_directory", help="Directory to save the output data"
     )
     parser.add_argument(
-        "--weight_file", help="Path to the trained CNN weights (msgpack)"
+        "--weight_file",
+        help="Path to the trained CNN weights (msgpack or Keras .hdf5)"
     )
     parser.add_argument("--scene_idx", default=1, type=int)
     parser.add_argument(

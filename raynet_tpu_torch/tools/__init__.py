@@ -10,10 +10,13 @@ Counterparts of the JAX package's ``tools/``:
   port timed alone with CUDA events, beside its bound;
 - ``roofline``: the H100's peaks and each kernel's bytes and operations;
 - ``utils.profiling.trace``: a ``torch.profiler`` trace and the device's
-  busy share.
+  busy share;
+- ``python -m raynet_tpu_torch.tools.bench_training_quality``: the
+  training-quality bench, bench.py's four metrics (``--device``, default
+  ``cuda``).
 
-Both entry points exit nonzero without a card; neither falls back to the
-CPU. The wrappers ``probe_dma_align.tma_box_rows`` and
+The first two entry points exit nonzero without a card; none falls back
+to the CPU. The wrappers ``probe_dma_align.tma_box_rows`` and
 ``probe_dma_align.tensor_core_dot`` take their plain versions for CPU
 tensors, as every kernel wrapper of the port does.
 """

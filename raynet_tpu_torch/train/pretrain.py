@@ -40,11 +40,18 @@ def _device_of(module):
     return next(module.parameters()).device
 
 
+def _f32(x, device):
+    """An array or a tensor (on any device) as a float32 tensor on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
 def _patches(x, device):
     """Channels-last patches (..., h, w, C) -> a (..., C, h, w) float32
     tensor on ``device``."""
-    return torch.as_tensor(np.asarray(x, np.float32), device=device).movedim(
-        -1, -3)
+    return _f32(x, device).movedim(-1, -3)
 
 
 def _init(model, seed, device):
@@ -104,8 +111,7 @@ def create_hartmann_pretrain_state(
     def train_step(state, patches, y):
         dev = _device_of(state.model)
         state.model.train()
-        y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
-        y = y.reshape(len(y), -1)
+        y = _f32(y, dev).reshape(len(y), -1)
         state.tx.zero_grad()
         out = state.model(_patches(patches, dev)).permute(0, 2, 3, 1)
         out = out.reshape(len(out), -1)
@@ -129,7 +135,8 @@ def _metrics(y, out, loss):
 
 def make_pretrain_step(model, loss_fn, weight_decay=0.0):
     """(train_step, eval_step) of a MultiViewSimilarityNet: each takes
-    (state, x1, x2, y) with x (B, D, N, H, W, C) and y (B, D) numpy arrays;
+    (state, x1, x2, y) with x (B, D, N, H, W, C) and y (B, D) numpy arrays
+    or tensors;
     train_step returns (state, metrics), eval_step metrics. The loss gets
     ``weight_decay`` times the sum of squares of every parameter with more
     than one dimension."""
@@ -139,7 +146,7 @@ def make_pretrain_step(model, loss_fn, weight_decay=0.0):
         m = state.model
         dev = _device_of(m)
         m.train()
-        y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+        y = _f32(y, dev)
         state.tx.zero_grad()
         out = m(_patches(x1, dev), _patches(x2, dev))
         loss = loss_fn(y, out).mean()
@@ -155,7 +162,7 @@ def make_pretrain_step(model, loss_fn, weight_decay=0.0):
         m = state.model
         dev = _device_of(m)
         m.eval()
-        y = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+        y = _f32(y, dev)
         out = m(_patches(x1, dev), _patches(x2, dev))
         return _metrics(y, out, loss_fn(y, out).mean())
 

@@ -1,8 +1,10 @@
-"""Voxel-grid construction and points along rays for the data layer, and
-the device check of the port's entry points.
+"""Ray / pixel indexing, voxel-grid construction and points along rays for
+the data layer, and the device check of the port's entry points.
 
-``point_from_depth``, ``point_to_voxel`` and ``get_voxel_grid`` are copies
-of ``raynet_tpu/utils/generic_utils.py``'s.
+Every function but ``resolve_device`` is a copy of
+``raynet_tpu/utils/generic_utils.py``'s. The ray <-> pixel mapping is
+column-major: ray r is pixel ``x = r // H`` (column), ``y = r % H`` (row),
+the ``(W, H).T`` layout of the depth maps.
 """
 import numpy as np
 import torch
@@ -28,6 +30,21 @@ def resolve_device(device):
     return device
 
 
+def pixel_to_ray(y, x, axis_length, axis_order="columns"):
+    """The ray index of pixel (y, x) (column-major by default)."""
+    if axis_order == "columns":
+        return x * axis_length + y
+    elif axis_order == "rows":
+        return y * axis_length + x
+    raise ValueError("axis_order argument can be either columns or rows")
+
+
+def ray_to_pixel(ray_idx, height):
+    """Inverse of ``pixel_to_ray`` for column-major indexing: (x, y), x
+    along the width, y along the height."""
+    return ray_idx // height, ray_idx % height
+
+
 def point_from_depth(camera_center, direction, depth):
     """3D point at metric ``depth`` along a (not necessarily unit) ray."""
     assert camera_center.shape == (3, 1)
@@ -41,6 +58,17 @@ def point_to_voxel(p, bbox_origin, bin_size):
     assert p.shape == (3, 1)
     v = (p - bbox_origin) / bin_size
     return np.floor(v).astype(np.int32)
+
+
+def voxel_to_world_coordinates(voxel_index, bbox, grid_shape):
+    """Centre of a voxel in world coordinates; ``bbox`` is the (1, 6)
+    [min, max] box."""
+    assert bbox.shape == (1, 6)
+    bin_size = (bbox[0, 3:] - bbox[0, :3]) / grid_shape
+    t = voxel_index * bin_size
+    t = t + bbox[0, :3]
+    t = t + bin_size / 2
+    return t
 
 
 def get_voxel_grid(bbox, grid_shape):

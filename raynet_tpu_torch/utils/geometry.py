@@ -1,9 +1,10 @@
 """Numpy geometry of the data layer: projection, distance, ray/triangle
 intersection.
 
-Copy of the functions of ``raynet_tpu/utils/geometry.py`` that the port's
-scenes, images, GT-mesh index, metrics, sampling schemes and sample
-generators call. Points are homogeneous column
+Copy of the functions of ``raynet_tpu/utils/geometry.py``: those the
+port's scenes, images, GT-mesh index, metrics, sampling schemes and sample
+generators call, and its public helpers ``rays_aabbox_intersection``,
+``rays_entry_exit`` and ``is_collinear``. Points are homogeneous column
 vectors unless stated otherwise. The tensor geometry of the forward pass is
 ``raynet_tpu_torch/ops/geometry.py``.
 """
@@ -60,6 +61,39 @@ def ray_aabbox_intersection(origin, destination, bbox_min, bbox_max):
     return t_near, t_far
 
 
+def rays_aabbox_intersection(origins, directions, bbox_min, bbox_max):
+    """Vectorized slab test of N rays ``origins + t * directions``
+    ((N, 3) each) against the box [bbox_min, bbox_max] ((3,) each).
+
+    Returns (t_near, t_far), (N,) float64; a ray misses the box iff
+    ``t_near > t_far``. No |t| swap here; see ``rays_entry_exit``.
+    """
+    origins = np.asarray(origins, dtype=np.float64)
+    directions = np.asarray(directions, dtype=np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1 = (bbox_min[None] - origins) / directions
+        t2 = (bbox_max[None] - origins) / directions
+    t_near = np.minimum(t1, t2).max(axis=1)
+    t_far = np.maximum(t1, t2).min(axis=1)
+    return t_near, t_far
+
+
+def rays_entry_exit(origins, directions, bbox_min, bbox_max):
+    """Entry and exit points ((N, 3) float64 each) of N rays through a box,
+    as the reference's sampling kernel takes them: after the slab test,
+    near and far swap where ``|t_near| >= |t_far|``, so that a segment
+    always runs from the camera outwards."""
+    t_near, t_far = rays_aabbox_intersection(
+        origins, directions, bbox_min, bbox_max
+    )
+    near_mask = np.abs(t_near) < np.abs(t_far)
+    t_near_actual = np.where(near_mask, t_near, t_far)
+    t_far_actual = np.where(near_mask, t_far, t_near)
+    ray_start = origins + t_near_actual[:, None] * directions
+    ray_end = origins + t_far_actual[:, None] * directions
+    return ray_start, ray_end
+
+
 def ray_triangles_intersection_mt(origin, destination, p0, p1, p2):
     """Vectorized Moeller-Trumbore ray/triangles intersection.
 
@@ -99,6 +133,14 @@ def ray_triangles_intersection_mt(origin, destination, p0, p1, p2):
 def distance(p1, p2):
     """Euclidean distance between two column vectors."""
     return np.sqrt(np.sum((np.asarray(p1) - np.asarray(p2)) ** 2))
+
+
+def is_collinear(p1, p2, p3, atol=2e-5):
+    """Whether the column vectors p1, p2, p3 lie on one line: their float32
+    cross product within ``atol`` of 0."""
+    v0 = (p2 - p1).astype(np.float32)
+    v1 = (p1 - p3).astype(np.float32)
+    return np.allclose(np.cross(v0, v1, axis=0), 0.0, atol=atol)
 
 
 def point_in_aabbox(point, bbox_min, bbox_max):

@@ -2,7 +2,7 @@
 first hit, for the data layer.
 
 Copy of the functions of ``raynet_tpu/utils/training_utils.py`` that the
-port's scenes and generation parameters call.
+port's scenes and generation parameters call, and of its ``get_triangles``.
 """
 import numpy as np
 
@@ -74,6 +74,11 @@ def gaussian_distribution(stddev_factor, std_is_distance):
         return D / s
 
     return inner
+
+
+def get_triangles(points, faces):
+    """(T, 3, 3) triangle array from vertices and face index rows."""
+    return np.asarray(points)[np.asarray(faces)]
 
 
 def get_ray_meshes_first_intersection(origin, destination, meshes):
