@@ -161,7 +161,29 @@ order, every phase failing loudly (nonzero exit):
    gamma moved by more than 1e-4, K3's rows mode launched once per
    end-to-end batch and no kernel in pretraining, and the end-to-end step
    lowering the loss on one fixed 8-ray batch (bench.py's own ratio
-   compares fresh batches and is printed).
+   compares fresh batches and is printed);
+16. the multi-GPU path (``raynet_tpu_torch.parallel.sharding``): (a) the
+   raynet pass of phase 6 with each image's rays split over 2 ranks, two
+   spawned processes over gloo on the one card (NCCL will not put two
+   ranks on one GPU): each rank's launches exactly K1 2 and K2 8, 6 grid
+   all-reduces (2 images x 3 sweeps), its wall, phases and seconds in
+   collectives, every rank's maps equal and against phase 6's on >= 0.999
+   of the pixels within 1e-3 relative with identical masks; (b) the same
+   sharded code at world size 1 over NCCL in this process, the same
+   checks, its wall beside phase 6's; (c) one end-to-end step on phase
+   14's fixed 1,000-ray batch split over 2 gloo ranks against the card's
+   step in one process: loss and gamma within rtol 1e-5 (the bars of
+   ``tests/test_sharding.py:252-278``), BatchNorm statistics within rtol
+   1e-5 / atol 1e-7, the ranks' parameters equal, and each gradient leaf
+   held to the float64 gradient of the same step: no farther from it than
+   twice the one-process step's error plus 1e-5 of the largest entry (the
+   one-process step is itself up to 1.7e-5 of the largest entry from
+   float64, so another summation order cannot meet that test's atol of
+   1e-5 against it; the excess over its bars is printed);
+   (d) ``raynet_forward_torch`` (raynet) under ``torchrun --standalone
+   --nproc_per_node 1`` on the 400x300 rig on disk: its maps against the
+   one-process CLI's at (a)'s bar. Two ranks on one card measure the
+   sharded path's cost, not a speed-up.
    No module of JAX or of the JAX package may have been imported.
 
 The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
@@ -1201,7 +1223,8 @@ def phase_train(check, dev, small, counters):
     checkpoint, its weight file read by raynet_forward_torch, K3's rows
     mode counted exactly (one launch per batch) and held to its plain
     version on a batch, the card's step alone, and one step against the
-    CPU's. Returns (summary, K3 rows launches of the two CLI runs)."""
+    CPU's. Returns (summary, K3 rows launches of the two CLI runs, the
+    fixed batch)."""
     import contextlib
     import io
 
@@ -1418,7 +1441,7 @@ def phase_train(check, dev, small, counters):
         out.update(e2e_step_against_cpu(check, dev, small_batch))
     out["phase_s"] = time.perf_counter() - t_phase
     log("  phase 14: %.1f s" % out["phase_s"])
-    return out, rows
+    return out, rows, batch
 
 
 def keras_tree(seed, theano=False):
@@ -1678,6 +1701,352 @@ def phase_quality(check, dev, counters, smi):
             results["pretrain"], "e2e": results["e2e"], "launches": launches,
             "fixed_batch_losses": fixed, "tpu_v5e_bench_r05": TPU_QUALITY,
             "sizes": q}, rows
+
+
+# Phase 16: the multi-GPU path. Two ranks on the one card use gloo (NCCL
+# will not put two ranks on one GPU); NCCL runs at world size 1.
+MULTI_RANKS = 2
+
+
+def _sharded_pass_rank(group, out_dir, rig):
+    """Phase 16 (a), one rank: phase 6's raynet pass on the ring rig ``rig``
+    (height, width, focal) on this rank's span of each image's rays, once
+    untimed, then timed with the kernel counters and the group's collective
+    counts set to 0 just before it."""
+    import torch
+
+    from raynet_tpu_torch.common.ring_scene import RingScene
+    from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
+    from raynet_tpu_torch.tools import time_kernels
+
+    scene = RingScene(6, *rig, angle_origin=1, seed=0)
+    model = FeatureExtractor("simple_cnn", seed=0,
+                             output_dtype=torch.bfloat16, device=group.device)
+    out = _sharded_pass(group, model, time_kernels.generation_params(), scene)
+    np.save(os.path.join(out_dir, "maps%d.npy" % group.rank), out.pop("maps"))
+    with open(os.path.join(out_dir, "rank%d.json" % group.rank), "w") as f:
+        json.dump(out, f)
+
+
+def _sharded_pass(group, model, gp, scene):
+    """The raynet pass through ``group`` (warm-up, then the timed pass):
+    its maps, wall, phases, kernel launches and collectives."""
+    import torch
+
+    from raynet_tpu_torch.inference import RayNetForwardPass
+    from raynet_tpu_torch.ops.bp_sweep import bp_sweep
+    from raynet_tpu_torch.ops.planesweep import plane_sweep_scores
+    from raynet_tpu_torch.ops.ray_marching import voxel_traversal_flat
+    from raynet_tpu_torch.ops.voxel_depth import voxel_argmax_depth
+    from raynet_tpu_torch.tools.time_kernels import N_RAYS
+
+    counters = {"plane_sweep_scores": plane_sweep_scores,
+                "voxel_traversal_flat": voxel_traversal_flat,
+                "voxel_argmax_depth": voxel_argmax_depth,
+                "bp_sweep": bp_sweep}
+    list(RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
+                           device=group.device).forward_pass(scene, (0, 2, 1)))
+    fp = RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
+                           device=group.device)
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+    for c in counters.values():
+        c.launches = 0
+    group.reset_counts()
+    t0 = time.perf_counter()
+    maps = np.stack(list(fp.forward_pass(scene, (0, 2, 1))))
+    wall = time.perf_counter() - t0
+    lo, hi = group.span(int(np.prod(scene.image_shape)))
+    return {"maps": maps, "wall_s": wall, "rank": group.rank,
+            "world_size": group.world_size, "rows_per_image": hi - lo,
+            "sharded": fp.ray_group is group,
+            "launches": {k: c.launches for k, c in counters.items()},
+            "grid_all_reduces": group.grid_all_reduces,
+            "all_reduces": group.all_reduces,
+            "collective_s": group.collective_s,
+            "phases_s": {k: v["total_s"]
+                         for k, v in fp.timer.summary().items()}}
+
+
+def _sharded_step_rank(group, out_dir, widths):
+    """Phase 16 (c), one rank: one end-to-end step at ``widths`` (E2E's)
+    on this rank's part of phase 14's fixed batch (``batch.npz``)."""
+    import torch
+
+    from raynet_tpu_torch.parallel import sharding
+
+    batch = dict(np.load(os.path.join(out_dir, "batch.npz")))
+    part = sharding.shard_e2e_batch(group, batch)
+    t0 = time.perf_counter()
+    result = _e2e_step(group.device, part, widths, group)
+    result["wall_s"] = time.perf_counter() - t0
+    result["rows"] = int(part["y"].shape[0])
+    result["collective_s"] = group.collective_s
+    result["grid_all_reduces"] = group.grid_all_reduces
+    torch.save(result, os.path.join(out_dir, "step%d.pt" % group.rank))
+
+
+def _e2e_step(dev, batch, widths, group=None):
+    """One end-to-end step of phase 14's state (seed 27, gamma 0.05) at
+    ``widths`` (E2E's D and grid) on ``batch``, in one process or through
+    ``group``: the loss, gamma after the update, the gradients (in the
+    state dict's names; gamma's as "gamma") and the CNN's state dict after
+    the update, on the CPU."""
+    import torch
+
+    from raynet_tpu_torch.common.generation_parameters import (
+        GenerationParameters,
+    )
+    from raynet_tpu_torch.train.train_e2e import build_end_to_end_training
+
+    gp = GenerationParameters(depth_planes=widths["D"], neighbors=4,
+                              patch_shape=(11, 11, 3))
+    state, train, _ = build_end_to_end_training(
+        27, gp, widths["grid"], lr=1e-3, gamma=0.05, train_with_gamma=True,
+        bp_iterations=3, return_grads=True, device=dev, ray_group=group)
+    if group is not None:
+        group.reset_counts()
+    state, m = train(state, batch)
+    grads = {k: g.detach().cpu() for k, g in m["grads"]["cnn"].items()}
+    grads["gamma"] = m["grads"]["gamma"].detach().cpu()
+    return {"loss": float(m["loss"]), "gamma": state.gamma.item(),
+            "grads": grads,
+            "model": {k: v.detach().cpu()
+                      for k, v in state.model.state_dict().items()}}
+
+
+def _e2e_grads64(dev, batch, widths):
+    """The float64 gradients of ``_e2e_step``'s step (the CNN, its
+    patches and gamma in float64), on the CPU, in its names."""
+    import torch
+
+    from raynet_tpu_torch.common.generation_parameters import (
+        GenerationParameters,
+    )
+    from raynet_tpu_torch.models.losses import emd
+    from raynet_tpu_torch.train.train_e2e import (
+        batch_to_device,
+        build_end_to_end_training,
+        raynet_forward,
+    )
+
+    gp = GenerationParameters(depth_planes=widths["D"], neighbors=4,
+                              patch_shape=(11, 11, 3))
+    state, _, _ = build_end_to_end_training(
+        27, gp, widths["grid"], lr=1e-3, gamma=0.05, train_with_gamma=True,
+        bp_iterations=3, device=dev)
+    model = state.model.double()
+    gamma = torch.tensor(0.05, dtype=torch.float64, device=dev,
+                         requires_grad=True)
+    t = batch_to_device(batch, dev)
+    S, _ = raynet_forward(model, gamma, t["X"].double(), t["points"],
+                          t["ray_voxel_indices"], t["ray_voxel_count"],
+                          t["bbox"], widths["grid"])
+    emd(t["y"].double(), S).mean().backward()
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    grads["gamma"] = gamma.grad.cpu()
+    return grads
+
+
+def phase_multi_gpu(check, dev, model, gp, scene, small, phase6, expect,
+                    e2e_batch):
+    """Phase 16: the sharded raynet pass on 2 gloo ranks on the card and at
+    world size 1 over NCCL, both held to phase 6's maps (``phase6``: maps
+    and wall) and its launches ``expect`` per rank; the sharded end-to-end
+    step on 2 gloo ranks held to the card's step in one process;
+    raynet_forward_torch under torchrun against the one-process CLI."""
+    import contextlib
+    import io
+
+    import torch
+
+    from raynet_tpu_torch.inference import RayNetForwardPass
+    from raynet_tpu_torch.parallel import sharding
+    from raynet_tpu_torch.scripts import forward_pass as cli
+
+    out = {}
+    sweeps = 2 * RayNetForwardPass.bp_iterations
+    torch.cuda.empty_cache()
+
+    def pass_checks(label, r, maps):
+        agree = rel_agreement(maps, phase6["maps"], 1e-3)
+        same = bool(np.array_equal(maps > 0, phase6["maps"] > 0))
+        log("  %s rank %d of %d: wall %.4f s (phase 6: %.4f s), %d rays an "
+            "image, collectives %.4f s (%d grid all-reduces of %d), phases %s"
+            % (label, r["rank"], r["world_size"], r["wall_s"],
+               phase6["wall_s"], r["rows_per_image"], r["collective_s"],
+               r["grid_all_reduces"], r["all_reduces"],
+               ", ".join("%s %.4f" % kv for kv in r["phases_s"].items())))
+        check(r["sharded"] and r["launches"] == expect,
+              "%s rank %d: sharded pass, launches %s (expect %s)"
+              % (label, r["rank"], r["launches"], expect))
+        check(r["grid_all_reduces"] == sweeps,
+              "%s rank %d: %d grid all-reduces (2 images x 3 sweeps)"
+              % (label, r["rank"], r["grid_all_reduces"]))
+        check(maps.shape == phase6["maps"].shape and same and agree >= 0.999,
+              "%s rank %d: maps %s against phase 6's: %.6f within 1e-3 "
+              "relative, masks identical: %s"
+              % (label, r["rank"], maps.shape, agree, same))
+        return dict(r, agreement=agree)
+
+    # (a) 2 ranks over gloo, both on the card
+    log("== 16a. the sharded raynet pass, %d ranks over gloo on %s (NCCL "
+        "will not put two ranks on one GPU): phase 6's configuration"
+        % (MULTI_RANKS, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sharding.launch(_sharded_pass_rank, MULTI_RANKS, str(dev),
+                        args=(tmp, tuple(scene.image_shape) + (float(
+                            scene.get_image(0).camera.K[0, 0]),)),
+                        backend="gloo")
+        launch_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(MULTI_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res = json.load(f)
+            maps = np.load(os.path.join(tmp, "maps%d.npy" % r))
+            ranks.append(pass_checks("gloo", res, maps))
+            if r == 0:
+                maps0 = maps
+            else:
+                check(bool(np.array_equal(maps, maps0)),
+                      "gloo rank %d holds rank 0's maps" % r)
+        del maps0, maps
+    log("  the launch (%d spawned processes, their set-up included): %.1f s"
+        % (MULTI_RANKS, launch_s))
+    out["gloo_pass"] = {"ranks": ranks, "launch_s": launch_s}
+
+    # (b) world size 1 over NCCL, the same sharded code, in this process
+    log("== 16b. the sharded raynet pass at world size 1 over NCCL")
+    with tempfile.TemporaryDirectory() as tmp:
+        # NCCL: make_ray_group's backend for a CUDA device
+        group = sharding.make_ray_group(
+            dev, init_method="file://" + os.path.join(tmp, "rendezvous"),
+            rank=0, world_size=1)
+        try:
+            r = _sharded_pass(group, model, gp, scene)
+        finally:
+            group.close()
+    out["nccl_pass"] = pass_checks("nccl", r, r.pop("maps"))
+
+    # (c) the sharded end-to-end step on 2 gloo ranks
+    log("== 16c. one end-to-end step on phase 14's fixed %d-ray batch split "
+        "over %d gloo ranks (grid %s, M = %d, 3 BP iterations), against the "
+        "card's step in one process"
+        % (e2e_batch["y"].shape[0], MULTI_RANKS,
+           "x".join(map(str, E2E["grid"])), E2E["M"]))
+    widths = {"D": E2E["D"], "grid": E2E["grid"]}
+    one = _e2e_step(dev, e2e_batch, widths)
+    exact = _e2e_grads64(dev, e2e_batch, widths)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "batch.npz"), **e2e_batch)
+        t0 = time.perf_counter()
+        sharding.launch(_sharded_step_rank, MULTI_RANKS, str(dev),
+                        args=(tmp, widths), backend="gloo")
+        launch_s = time.perf_counter() - t0
+        steps = [torch.load(os.path.join(tmp, "step%d.pt" % r))
+                 for r in range(MULTI_RANKS)]
+    scale = max(float(g.abs().max()) for g in exact.values())
+
+    def err64(g, k):
+        # a leaf's max error against float64, in units of the largest entry
+        return float((g.double() - exact[k]).abs().max()) / scale
+
+    one64 = {k: err64(g, k) for k, g in one["grads"].items()}
+    worst, far = {}, {}
+    for r, st in enumerate(steps):
+        # the JAX test's bars against the one-process step: each leaf's
+        # excess over rtol 1e-4 / atol 1e-5 of the largest entry (a reading)
+        worst[r] = max(((k, float(((g - one["grads"][k]).abs() - 1e-4
+                                   * one["grads"][k].abs()).max()) / scale
+                         - 1e-5) for k, g in st["grads"].items()),
+                       key=lambda kv: kv[1])
+        # the check: each leaf no farther from float64 than twice the
+        # one-process step's error plus 1e-5 of the largest entry
+        errs = {k: err64(g, k) for k, g in st["grads"].items()}
+        far[r] = max(errs[k] - 2 * one64[k] - 1e-5 for k in errs)
+        leaf = max(errs, key=errs.get)
+        stats = [k for k in one["model"] if "running" in k]
+        bn = max(float(((st["model"][k] - one["model"][k]).abs()
+                        - 1e-5 * one["model"][k].abs()).max())
+                 for k in stats)
+        log("  rank %d: %d rays, step %.3f s (cold, in a new process), "
+            "collectives %.4f s (%d grid all-reduces); loss %.8f (one process "
+            "%.8f), gamma %.8f (%.8f); gradients against float64: farthest "
+            "leaf %s %.3e of the largest entry (one process %.3e; "
+            "farthest of the one process %.3e); against the one-process "
+            "step: worst leaf %s over the JAX test's bars by %.3e; BatchNorm "
+            "statistics worst excess over rtol 1e-5 %.3e"
+            % (r, st["rows"], st["wall_s"], st["collective_s"],
+               st["grid_all_reduces"], st["loss"], one["loss"], st["gamma"],
+               one["gamma"], leaf, errs[leaf], one64[leaf],
+               max(one64.values()), worst[r][0], worst[r][1], bn))
+        check(abs(st["loss"] - one["loss"]) <= 1e-6 + 1e-5 * abs(one["loss"])
+              and abs(st["gamma"] - one["gamma"])
+              <= 1e-7 + 1e-5 * abs(one["gamma"]),
+              "rank %d: loss and gamma within rtol 1e-5 of the one-process "
+              "step" % r)
+        check(far[r] <= 0.0, "rank %d: every gradient leaf within twice "
+              "the one-process step's error against float64 plus 1e-5 of "
+              "the largest entry" % r)
+        check(bn <= 1e-7, "rank %d: BatchNorm running statistics within "
+              "rtol 1e-5, atol 1e-7" % r)
+    check(all(torch.equal(v, steps[0]["model"][k])
+              for st in steps[1:] for k, v in st["model"].items())
+          and all(st["gamma"] == steps[0]["gamma"] for st in steps),
+          "every rank's parameters, BatchNorm statistics and gamma equal")
+    out["e2e_step"] = {
+        "launch_s": launch_s, "loss": [st["loss"] for st in steps],
+        "one_process_loss": one["loss"],
+        "gamma": [st["gamma"] for st in steps], "one_process_gamma":
+        one["gamma"], "step_s": [st["wall_s"] for st in steps],
+        "collective_s": [st["collective_s"] for st in steps],
+        "grad_err_f64_one_process": max(one64.values()),
+        "grad_err_f64": {r: max(err64(g, k) for k, g in st["grads"].items())
+                         for r, st in enumerate(steps)},
+        "grad_excess_jax_bars": {r: w[1] for r, w in worst.items()}}
+    del one, steps, exact
+
+    # (d) raynet_forward_torch under torchrun against one process
+    log("== 16d. raynet_forward_torch --forward_pass_factory raynet under "
+        "torchrun --standalone --nproc_per_node 1 (NCCL), on the 400x300 "
+        "rig on disk, against the CLI in one process")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_restrepo_scene(small, os.path.join(tmp, "data"))
+        flags = ["--scene_idx", "0", "--forward_pass_factory", "raynet",
+                 "--start_end", "0,2", "--depth_planes", str(gp.depth_planes),
+                 "--grid_shape", ",".join(str(g) for g in gp.grid_shape),
+                 "--maximum_number_of_marched_voxels",
+                 str(gp.max_number_of_marched_voxels), "--device", dev.type]
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main([data, os.path.join(tmp, "one")] + flags)
+        t0 = time.perf_counter()
+        run_ = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m",
+             "raynet_tpu_torch.scripts.forward_pass", data,
+             os.path.join(tmp, "torchrun")] + flags,
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        torchrun_s = time.perf_counter() - t0
+        check(run_.returncode == 0, "torchrun exit %d%s" % (
+            run_.returncode, "" if run_.returncode == 0
+            else ": " + run_.stderr[-2000:]))
+        maps = {k: np.stack([np.load(os.path.join(tmp, k, "depth_%03d.npy"
+                                                  % i)) for i in range(2)])
+                for k in ("one", "torchrun")}
+    agree = rel_agreement(maps["torchrun"], maps["one"], 1e-3)
+    same = bool(np.array_equal(maps["torchrun"] > 0, maps["one"] > 0))
+    log("  torchrun %.1f s (its processes' set-up included); %d 'saved' "
+        "lines; maps %.6f within 1e-3 relative of the one-process CLI's, "
+        "masks identical: %s" % (torchrun_s, run_.stdout.count("saved "),
+                                  agree, same))
+    check(run_.stdout.count("saved ") == 2 and same and agree >= 0.999,
+          "the torchrun CLI printed 2 maps and they agree with the "
+          "one-process CLI's")
+    out["torchrun_cli"] = {"wall_s": torchrun_s, "agreement": agree}
+    return out
 
 
 def main(argv=None):
@@ -2189,7 +2558,9 @@ def main(argv=None):
             check(nz.min() >= 10.0 and nz.max() <= 30.0,
                   "depths inside the ring's camera-to-bbox range [10, 30]")
         if name == "raynet":
-            raynet_maps = allmaps  # phase 10 holds the host store to them
+            # phase 10 holds the host store to them, phase 16 the sharded
+            # passes
+            raynet_maps = allmaps
         del fp, maps, allmaps
         # five more walls, each of a pass with its features computed anew:
         # the spread a single wall hides on a shared host
@@ -2408,7 +2779,6 @@ def main(argv=None):
     host_store = phase_host_store(
         check, dev, model, gp, scene, raynet_maps, counters,
         {k: passes[0][2].get(k, 0) for k in counters})
-    del raynet_maps
 
     # 11. the evaluation CLIs on the card, and K3's rows mode through
     # ops.backends
@@ -2422,11 +2792,18 @@ def main(argv=None):
                               seed=0), counters)
     pretraining = phase_pretrain(check, dev, small)
     # 14. end-to-end training on phase 7's rig
-    training, train_rows_launches = phase_train(check, dev, small, counters)
+    training, train_rows_launches, e2e_batch = phase_train(
+        check, dev, small, counters)
     # 15. a Keras checkpoint through the raynet pass on phase 7's rig; the
     # training-quality bench
     keras = phase_keras(check, dev, small, gp, counters)
     quality, quality_rows_launches = phase_quality(check, dev, counters, smi)
+    # 16. the multi-GPU path
+    multi_gpu = phase_multi_gpu(
+        check, dev, model, gp, scene, small,
+        {"maps": raynet_maps, "wall_s": results["raynet"]["wall_s"]},
+        {k: passes[0][2].get(k, 0) for k in counters}, e2e_batch)
+    del raynet_maps, e2e_batch
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "raynet_tpu"))
@@ -2505,7 +2882,7 @@ def main(argv=None):
                       "host_store": host_store, "evaluation": evaluation,
                       "hartmann_fp": hartmann, "pretraining": pretraining,
                       "training": training, "keras": keras,
-                      "training_quality": quality},
+                      "training_quality": quality, "multi_gpu": multi_gpu},
                      allow_nan=False))
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(smi)

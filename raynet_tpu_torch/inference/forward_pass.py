@@ -32,9 +32,17 @@ per image in every pass, K3's voxel-depth mode once per image in the
 voxel-space pass, K2 once per image and sweep in the raynet pass); on the
 CPU the plain versions run ``rays_batch`` rays at a time.
 
+With a ray group (``parallel.sharding``: ``torchrun``'s ranks, or a group
+made by ``make_ray_group``), the raynet pass splits each image's rays over
+the ranks, as the JAX package's sharded scan does: each rank computes the
+features of every view, K1 and K2 on its span of each image's rays, and
+its own message store; each image's grid scatter of each sweep is summed
+over the ranks by one all-reduce, and the depth maps are assembled whole
+on every rank.
+
 What the JAX package adds on top of this — beam/band planners, box classes,
-the plan prefetcher, the sharded scan and the VMEM retry — exists because
-Mosaic has no in-kernel gather, and is not ported.
+the plan prefetcher and the VMEM retry — exists because Mosaic has no
+in-kernel gather, and is not ported.
 """
 import time
 import weakref
@@ -48,6 +56,7 @@ from ..models.feature_extractor import zeropad_images
 from ..ops import fused
 from ..ops.mrf import log_prior
 from ..ops.sampling import get_sampling_scheme_op, segments_in_bbox
+from ..parallel import sharding
 from ..utils.generic_utils import resolve_device
 from ..utils.profiling import PhaseTimer
 from . import message_store
@@ -289,6 +298,22 @@ class RayNetForwardPass(ForwardPass):
     # The store the last call used: "device", "host_f32", "host_f16" or
     # "memmap".
     message_store = None
+    # "auto": split each image's rays over the ranks of the ray group when
+    # there is one (``sharding.ray_group_from_env``), as the JAX package
+    # shards over every visible device; "off": one process. Unlike the JAX
+    # package, which shards only from 2 devices on, the sharded path runs
+    # at world size 1 too, so that NCCL at world size 1 takes the same code.
+    multichip = "auto"
+    # The ray group of the last call; None where it ran in one process.
+    ray_group = None
+
+    def _ray_group(self):
+        if self.multichip == "off":
+            return None
+        if self.multichip != "auto":
+            raise ValueError("multichip must be 'auto' or 'off', got %r"
+                             % (self.multichip,))
+        return sharding.ray_group_from_env(self.device)
 
     def forward_pass(self, scene, images_range):
         """Yield one (H, W) float32 depth map per reference image of
@@ -311,7 +336,12 @@ class RayNetForwardPass(ForwardPass):
         ray_idxs = {
             i: self.get_valid_rays_per_image(scene, i) for i in ref_indices
         }
-        rows = {i: len(r) for i, r in ray_idxs.items()}
+        n_valid = {i: len(r) for i, r in ray_idxs.items()}
+        group = self.ray_group = self._ray_group()
+        # this process's rays of each image: all of them, or its span
+        mine = {i: r[slice(*group.span(len(r)))] if group else r
+                for i, r in ray_idxs.items()}
+        rows = {i: len(r) for i, r in mine.items()}
         # per ray: the scores and the two segment endpoints stay on the
         # device; the messages too while everything fits
         fixed = sum(n * (D + 6) * 4 for n in rows.values())
@@ -338,7 +368,7 @@ class RayNetForwardPass(ForwardPass):
                     scene, i
                 )
                 idxs = torch.as_tensor(
-                    np.ascontiguousarray(ray_idxs[i]), device=dev
+                    np.ascontiguousarray(mine[i]), device=dev
                 )
                 segments[i] = segments_in_bbox(
                     idxs, P_pinv, centers[i], bbox, H
@@ -348,17 +378,21 @@ class RayNetForwardPass(ForwardPass):
                 )
 
         def update(block, i, scatter_total, grid_acc, iteration):
-            fused.raynet_image_update(
-                block, scores[i], scatter_total, grid_acc, *segments[i],
-                centers[i], bbox, **bp, first_iteration=(iteration == 0),
-                prior=prior,
-            )
+            args = (block, scores[i], scatter_total, grid_acc, *segments[i],
+                    centers[i], bbox)
+            kw = dict(bp, first_iteration=(iteration == 0), prior=prior)
+            if group is None:
+                fused.raynet_image_update(*args, **kw)
+            else:
+                sharding.sharded_image_update(group, *args, **kw)
 
         def depth(block, i, grid_acc):
-            return fused.raynet_image_depth(
-                block, scores[i], grid_acc, *segments[i], centers[i], bbox,
-                **bp,
-            )
+            args = (block, scores[i], grid_acc, *segments[i], centers[i],
+                    bbox)
+            if group is None:
+                return fused.raynet_image_depth(*args, **bp)
+            return sharding.sharded_image_depth(group, n_valid[i], *args,
+                                                **bp)
 
         def depth_map(i, depth):
             out = np.zeros(H * W, dtype=np.float32)

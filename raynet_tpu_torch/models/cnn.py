@@ -33,17 +33,38 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``stat = momentum * stat + (1 - momentum) * batch`` with flax's momentum
     0.99. ``nn.BatchNorm2d`` would store the unbiased variance, n / (n - 1)
     times larger.
+
+    ``sum_over_ranks``: where a batch is split over the ranks of a ray
+    group, a callable that sums a tensor over the ranks with its gradient
+    (``parallel.sharding.all_reduce_sum``); the statistics are then those
+    of all ranks' inputs: the per-channel sums of x and x^2 and the count,
+    summed in float64 over the ranks.
     """
+
+    sum_over_ranks = None
 
     def __init__(self, channels, eps=1e-3, flax_momentum=0.99):
         super().__init__(channels, eps=eps, momentum=1.0 - flax_momentum)
         self.flax_momentum = flax_momentum
 
+    def _global_moments(self, x):
+        """(E[x], E[x^2]) per channel over every rank's x."""
+        c = x.shape[1]
+        sums = self.sum_over_ranks(torch.cat([
+            x.sum(dim=(0, 2, 3)).double(), (x * x).sum(dim=(0, 2, 3)).double(),
+            x.new_full((1,), x.numel() // c, dtype=torch.float64)]))
+        return ((sums[:c] / sums[-1]).to(x.dtype),
+                (sums[c:2 * c] / sums[-1]).to(x.dtype))
+
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0)
+        if self.sum_over_ranks is None:
+            mean = x.mean(dim=(0, 2, 3))
+            sq = (x * x).mean(dim=(0, 2, 3))
+        else:
+            mean, sq = self._global_moments(x)
+        var = torch.clamp(sq - mean * mean, min=0)
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

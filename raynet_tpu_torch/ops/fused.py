@@ -8,7 +8,8 @@ steps, with every output they return; ``mvcnn_image_depth`` and
 image, which is what the mvcnn passes run. ``raynet_image_scores``,
 ``raynet_image_update`` and ``raynet_image_depth`` do over all rays of one
 image what the JAX package's ``raynet_message_step`` (:228-329) and
-``raynet_depth_step`` (:713-791) do per batch, and its per-image loops
+``raynet_depth_step`` (:713-791) do per batch (``raynet_image_scatter``
+the update's sweep alone, for the sharded pass), and its per-image loops
 (:491, :626) around them. They hand the heavy work to the kernels' wrappers
 (``plane_sweep_scores``, ``voxel_traversal_flat``, ``voxel_argmax_depth``,
 ``bp_sweep``), which run the CUDA kernels for CUDA tensors and the plain
@@ -158,16 +159,15 @@ def raynet_image_scores(
     )
 
 
-def raynet_image_update(
-    messages, scores, scatter_total, grid_acc, ray_start, ray_end,
-    camera_center, bbox, *, grid_shape, max_voxels, first_iteration, prior,
-    rays_batch,
+def raynet_image_scatter(
+    messages, scores, grid_acc, ray_start, ray_end, camera_center, bbox, *,
+    grid_shape, max_voxels, first_iteration, prior, rays_batch,
 ):
     """One BP sweep over all rays of one image.
 
     Updates the image's message store ``messages`` (rows, M) in place and
-    ADDS the image's messages into ``scatter_total``; ``grid_acc`` is the
-    previous iteration's grid.
+    returns the image's messages summed into a zero grid (G,); ``grid_acc``
+    is the previous iteration's grid.
     """
     # the image's sum starts from zero, as the JAX package's batches do:
     # added onto the prior-filled grid directly, small messages would round
@@ -184,7 +184,16 @@ def raynet_image_update(
             prior if first_iteration else 0.0,
             "first" if first_iteration else "message", messages_out=rows,
         )
-    scatter_total += scatter
+    return scatter
+
+
+def raynet_image_update(messages, scores, scatter_total, grid_acc, *args,
+                        **kw):
+    """``raynet_image_scatter`` (same arguments past ``scatter_total``),
+    its grid ADDED into ``scatter_total``. Returns (messages,
+    scatter_total)."""
+    scatter_total += raynet_image_scatter(messages, scores, grid_acc, *args,
+                                          **kw)
     return messages, scatter_total
 
 

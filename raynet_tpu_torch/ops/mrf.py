@@ -155,7 +155,7 @@ def depth_estimate(S, flat_idx, counts, messages_pon, grid_acc_flat):
 
 
 def belief_propagation(S, voxel_indices, counts, grid_shape, gamma=0.05,
-                       bp_iterations=3, remat=True):
+                       bp_iterations=3, remat=True, sum_over_ranks=None):
     """Full multi-iteration BP over one batch of rays.
 
     S: (N, M) per-voxel depth probabilities; voxel_indices: (N, M, 3)
@@ -170,6 +170,11 @@ def belief_propagation(S, voxel_indices, counts, grid_shape, gamma=0.05,
     instead of keeping its (N, M) cumprod / cumsum chain (the JAX package's
     ``jax.checkpoint``, ``raynet_tpu/ops/mrf.py:230-231``); the numbers are
     the same either way.
+
+    ``sum_over_ranks``: where the batch's rays are split over the ranks of
+    a ray group, a callable that sums a tensor over the ranks with its
+    gradient (``parallel.sharding.all_reduce_sum``); each sweep's scatter
+    goes through it before the prior is added, once.
     """
     from .ray_marching import flatten_voxel_indices
 
@@ -178,13 +183,14 @@ def belief_propagation(S, voxel_indices, counts, grid_shape, gamma=0.05,
     flat_idx = flatten_voxel_indices(voxel_indices, grid_shape)
     prior = log_prior(torch.as_tensor(gamma, dtype=S.dtype, device=S.device))
     # the first sweep: uniform prior and zero messages, nothing gathered
+    reduce = sum_over_ranks or (lambda t: t)
     msgs, scatter = bp_update_first(S, flat_idx, counts, prior, grid_size)
-    grid_acc = scatter + prior
+    grid_acc = reduce(scatter) + prior
 
     def sweep(msgs, grid_acc):
         msgs, scatter = bp_update(S, flat_idx, counts, msgs, grid_acc,
                                   grid_size)
-        return msgs, scatter + prior
+        return msgs, reduce(scatter) + prior
 
     remat = remat and torch.is_grad_enabled()
     for _ in range(bp_iterations - 1):

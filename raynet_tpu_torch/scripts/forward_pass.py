@@ -8,6 +8,13 @@ package the model is a ``FeatureExtractor`` of ``--cnn_factory`` for every
 factory, ``hartmann_fp`` included (which then scores a quintuple by
 channel 0 of its features). Scenes are read by the port's own data layer
 (``raynet_tpu_torch/common``), so the CLI runs without the JAX package.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+-m raynet_tpu_torch.scripts.forward_pass ...``) the CLI sets up the ray
+group from torchrun's variables (``parallel.sharding``) and the raynet
+pass splits each image's rays over the ranks, as the JAX CLI shards over
+every visible device, with no flag; rank 0 alone writes the maps and
+prints. The other factories run whole on every rank.
 """
 import argparse
 import os
@@ -18,6 +25,7 @@ from ..common.generation_parameters import GenerationParameters
 from ..common.sampling_schemes import make_sampling_scheme
 from ..inference import get_forward_pass_factory
 from ..models.feature_extractor import FeatureExtractor
+from ..parallel import sharding
 from .arguments import (
     add_dataset_related_arguments,
     add_device_arguments,
@@ -63,8 +71,19 @@ def main(argv=None):
     add_device_arguments(parser)
     args = parser.parse_args(argv)
 
+    opened = sharding.current_ray_group() is None
+    group = sharding.ray_group_from_env(args.device)
+    try:
+        _run(args, group is None or group.rank == 0)
+    finally:
+        if opened and group is not None:
+            group.close()
+
+
+def _run(args, writes):
     factory = get_forward_pass_factory(args.forward_pass_factory)
-    os.makedirs(args.output_directory, exist_ok=True)
+    if writes:
+        os.makedirs(args.output_directory, exist_ok=True)
 
     generation_params = GenerationParameters.from_options(args)
     sampling_scheme = make_sampling_scheme(
@@ -85,7 +104,8 @@ def main(argv=None):
             device=args.device,
         )
     else:
-        print("WARNING: no --weight_file given; using random CNN weights")
+        if writes:
+            print("WARNING: no --weight_file given; using random CNN weights")
         model = FeatureExtractor(
             args.cnn_factory, channels=channels, device=args.device
         )
@@ -106,9 +126,10 @@ def main(argv=None):
         range(start, end, skip),
         fp.forward_pass(scene, (start, end, skip)),
     ):
-        out = os.path.join(args.output_directory, "depth_%03d.npy" % (i,))
-        np.save(out, depth_map.astype(np.float32))
-        print("saved", out)
+        if writes:
+            out = os.path.join(args.output_directory, "depth_%03d.npy" % (i,))
+            np.save(out, depth_map.astype(np.float32))
+            print("saved", out)
 
 
 if __name__ == "__main__":

@@ -12,11 +12,21 @@ trains over all V * B * D patches with flax's semantics
 optax chain (``models.optimizers.OptaxChain``) over the CNN's parameters
 and gamma. Batches are the JAX layout: numpy arrays (or tensors), X
 channels last, (V, B, D, ph, pw, C).
+
+With a ray group (``parallel.sharding``), each rank steps on its part of
+the batch (``sharding.shard_e2e_batch``) and the step is the whole batch's,
+as the JAX step under GSPMD is: every BP sweep's grid scatter and every
+BatchNorm's sums are summed over the ranks (with their gradients), each
+rank's loss is its rays' sum over the global batch size, and the
+gradients are summed over the ranks before the update, which every rank
+then makes alike.
 """
+import functools
+
 import numpy as np
 import torch
 
-from ..models.cnn import HartmannCNN, cnn_factory
+from ..models.cnn import BatchNorm2d, HartmannCNN, cnn_factory
 from ..models.convert import read_cnn_weights
 from ..models.losses import expected_squared_error, loss_factory
 from ..models.optimizers import optimizer_factory
@@ -24,6 +34,7 @@ from ..ops import mrf
 from ..ops.planes_voxels import depth_planes_to_voxels, project_voxels_to_rays
 from ..ops.ray_marching import flatten_voxel_indices, voxel_centers
 from ..ops.sampling import true_divisor
+from ..parallel import sharding
 from ..utils.generic_utils import resolve_device
 
 _GAMMA_CLIP = (1e-5, 1.0 - 1e-5)
@@ -87,11 +98,12 @@ def patch_features(model, X, train=True):
 
 
 def raynet_head(f, gamma, points, ray_voxel_indices, ray_voxel_count, bbox,
-                grid_shape, bp_iterations=3):
+                grid_shape, bp_iterations=3, sum_over_ranks=None):
     """From (V, B, D, F) features to the posterior: the view-pair sums, the
     softmax over planes, the li_2 mapping onto the visited voxels, BP and
     the depth estimate. Returns (S_post (B, M), aux dict with S_planes,
-    S_vox and centers)."""
+    S_vox and centers). ``sum_over_ranks``: see
+    ``mrf.belief_propagation``."""
     v, _, d = f.shape[:3]
     # sum over view pairs i<j via the closed-form identity
     sum_f = f.sum(dim=0)
@@ -108,7 +120,7 @@ def raynet_head(f, gamma, points, ray_voxel_indices, ray_voxel_count, bbox,
     gamma = gamma.clamp(*_GAMMA_CLIP)
     grid_acc, msgs = mrf.belief_propagation(
         S_vox, ray_voxel_indices, ray_voxel_count, grid_shape, gamma=gamma,
-        bp_iterations=bp_iterations,
+        bp_iterations=bp_iterations, sum_over_ranks=sum_over_ranks,
     )
     flat_idx = flatten_voxel_indices(ray_voxel_indices, grid_shape)
     S_post = mrf.depth_estimate(S_vox, flat_idx, ray_voxel_count, msgs,
@@ -127,6 +139,7 @@ def raynet_forward(
     grid_shape,
     bp_iterations=3,
     train=True,
+    sum_over_ranks=None,
 ):
     """Differentiable RayNet forward on a batch of rays from one scene:
     ``raynet_head`` of ``patch_features``.
@@ -142,7 +155,8 @@ def raynet_forward(
     """
     return raynet_head(
         patch_features(model, X, train), gamma, points, ray_voxel_indices,
-        ray_voxel_count, bbox, grid_shape, bp_iterations=bp_iterations)
+        ray_voxel_count, bbox, grid_shape, bp_iterations=bp_iterations,
+        sum_over_ranks=sum_over_ranks)
 
 
 def batch_to_device(batch, device):
@@ -169,6 +183,7 @@ def build_end_to_end_training(
     weight_file=None,
     return_grads=False,
     device="cuda",
+    ray_group=None,
 ):
     """Returns (state, train_fn, eval_fn), the JAX package's functional
     pair as steps over an ``E2EState``.
@@ -183,9 +198,14 @@ def build_end_to_end_training(
     running statistics. Compare gradients, not updated parameters, with
     another implementation: a conv bias feeding a BatchNorm has zero
     gradient in exact arithmetic, and Adam turns its rounding noise into
-    +-lr."""
+    +-lr.
+
+    ``ray_group``: step on each rank's part of the batch (see the module's
+    docstring) on the group's device; the state is broadcast from rank 0,
+    and the metrics and gradients are the whole batch's on every rank."""
     gp = generation_params
-    device = resolve_device(device)
+    device = resolve_device(device if ray_group is None
+                            else ray_group.device)
     model = cnn_factory(cnn_name)(gp.patch_shape[2])
     model.reset_parameters(torch.Generator().manual_seed(seed))
     if weight_file:
@@ -203,6 +223,16 @@ def build_end_to_end_training(
     state = E2EState(model, g_param, optimizer_factory(
         optimizer, lr, momentum, clipnorm)(params))
     fixed_gamma = torch.tensor(gamma, dtype=torch.float32, device=device)
+    grid_sum = None
+    if ray_group is not None:
+        def grid_sum(t):
+            return sharding.all_reduce_sum(t, ray_group, grid=True)
+
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.sum_over_ranks = functools.partial(
+                    sharding.all_reduce_sum, ray_group=ray_group)
+        sharding.replicate_state(ray_group, state)
 
     def _forward(state, batch, train):
         g = state.gamma if state.gamma is not None else fixed_gamma
@@ -210,7 +240,7 @@ def build_end_to_end_training(
             state.model, g, batch["X"], batch["points"],
             batch["ray_voxel_indices"], batch["ray_voxel_count"],
             batch["bbox"], grid_shape, bp_iterations=bp_iterations,
-            train=train,
+            train=train, sum_over_ranks=grid_sum,
         )
         return S_post, aux, g
 
@@ -219,8 +249,14 @@ def build_end_to_end_training(
             dists = torch.linalg.norm(
                 aux["centers"] - batch["camera_centers"][:, None, :3], dim=-1
             )
-            return expected_squared_error(y, S_post, dists).mean()
-        return loss_fn(y, S_post).mean()
+            per_ray = expected_squared_error(y, S_post, dists)
+        else:
+            per_ray = loss_fn(y, S_post)
+        if ray_group is None:
+            return per_ray.mean()
+        # this rank's share of the whole batch's mean
+        n = sharding.global_count(ray_group, per_ray.shape[0])
+        return per_ray.sum() / true_divisor(n, device)
 
     def train_fn(state, batch):
         batch = batch_to_device(batch, device)
@@ -228,6 +264,9 @@ def build_end_to_end_training(
         S_post, aux, g = _forward(state, batch, train=True)
         loss_val = _loss(batch["y"], S_post, aux, batch)
         loss_val.backward()
+        if ray_group is not None:
+            sharding.all_reduce_grads(ray_group, state.tx.params)
+            loss_val = ray_group.all_reduce(loss_val.detach().clone())
         metrics = {"loss": loss_val.detach(), "gamma": g.detach().clone()}
         if return_grads:
             metrics["grads"] = {
@@ -247,7 +286,9 @@ def build_end_to_end_training(
     def eval_fn(state, batch):
         batch = batch_to_device(batch, device)
         S_post, aux, g = _forward(state, batch, train=False)
-        return {"loss": _loss(batch["y"], S_post, aux, batch),
-                "gamma": g.detach().clone()}
+        loss_val = _loss(batch["y"], S_post, aux, batch)
+        if ray_group is not None:
+            ray_group.all_reduce(loss_val)
+        return {"loss": loss_val, "gamma": g.detach().clone()}
 
     return state, train_fn, eval_fn
