@@ -40,6 +40,12 @@ its own message store; each image's grid scatter of each sweep is summed
 over the ranks by one all-reduce, and the depth maps are assembled whole
 on every rank.
 
+Each host step of a pass (an image's pad, upload and CNN launches; a
+view's ray indices, their upload and segments; each kernel call; a view's
+depth download and scatter) is a ``utils.profiling.span`` of a fixed name,
+a ``record_function`` range only while a profiler records, nested in its
+phase or directly in the pass, and closed before the pass yields.
+
 What the JAX package adds on top of this — beam/band planners, box classes,
 the plan prefetcher and the VMEM retry — exists because Mosaic has no
 in-kernel gather, and is not ported.
@@ -58,7 +64,7 @@ from ..ops.mrf import log_prior
 from ..ops.sampling import get_sampling_scheme_op, segments_in_bbox
 from ..parallel import sharding
 from ..utils.generic_utils import resolve_device
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, span
 from . import message_store
 
 
@@ -88,7 +94,7 @@ class ForwardPass:
         self._image_feature_cache = OrderedDict()
         self.max_cached_image_features = generation_params.neighbors + 2
         self._scene_token = None
-        self.timer = PhaseTimer(verbose=False, device=self.device)
+        self.timer = PhaseTimer(device=self.device)
 
     def _check_scene(self, scene):
         """Drop per-scene caches when called on a different scene."""
@@ -162,9 +168,13 @@ class ForwardPass:
             cache.move_to_end(img_idx)
             return cache[img_idx]
         image = scene.get_image(img_idx)
-        padded = zeropad_images([image], self._generation_params.padding)
+        with span("cnn.pad"):
+            padded = zeropad_images([image], self._generation_params.padding)
         with self.timer.phase("Features computation"):
-            feats = self._model.predict(padded)[0].to(self.device)
+            with span("cnn.upload"):
+                padded = torch.as_tensor(padded, device=self.device)
+            with span("cnn.net"):
+                feats = self._model.predict(padded)[0].to(self.device)
         cache[img_idx] = feats
         while len(cache) > self.max_cached_image_features:
             cache.popitem(last=False)
@@ -227,19 +237,26 @@ class _PerViewDepthPass(ForwardPass):
             np.asarray(scene.bbox, np.float32).reshape(-1), device=self.device
         )
         for ref_idx in range(start, end, skip):
-            ray_idxs = self.get_valid_rays_per_image(scene, ref_idx)
+            with span("rays.index"):
+                ray_idxs = self.get_valid_rays_per_image(scene, ref_idx)
             features, P, P_pinv, center = self._features_and_cameras(
                 scene, ref_idx
             )
             with self.timer.phase("Per-pixel depth estimation"):
-                idxs = torch.as_tensor(np.ascontiguousarray(ray_idxs),
-                                       device=self.device)
-                segments = segments_in_bbox(idxs, P_pinv, center, bbox, H)
+                with span("rays.upload"):
+                    idxs = torch.as_tensor(np.ascontiguousarray(ray_idxs),
+                                           device=self.device)
+                with span("rays.segments"):
+                    segments = segments_in_bbox(idxs, P_pinv, center, bbox, H)
                 depth = self._image_depth(segments, features, P, center,
-                                          bbox, H, W).cpu().numpy()
-            depth_map = np.zeros(H * W, dtype=np.float32)
-            depth_map[ray_idxs] = depth
-            yield depth_map.reshape(W, H).T
+                                          bbox, H, W)
+                with span("depth.download"):
+                    depth = depth.cpu().numpy()
+            with span("depth.scatter"):
+                depth_map = np.zeros(H * W, dtype=np.float32)
+                depth_map[ray_idxs] = depth
+                depth_map = depth_map.reshape(W, H).T
+            yield depth_map
 
 
 class MultiViewCNNForwardPass(_PerViewDepthPass):
@@ -260,13 +277,14 @@ class MultiViewCNNVoxelSpaceForwardPass(_PerViewDepthPass):
 
     def _image_depth(self, segments, features, P, center, bbox, H, W):
         gp = self._generation_params
-        return fused.mvcnn_voxel_image_depth(
-            *segments, features, P, center, bbox, height=H, width=W,
-            padding=gp.padding, depth_planes=gp.depth_planes,
-            grid_shape=tuple(int(g) for g in gp.grid_shape),
-            max_voxels=int(gp.max_number_of_marched_voxels),
-            rays_batch=self.rays_batch,
-        )
+        with span("voxel_depth"):
+            return fused.mvcnn_voxel_image_depth(
+                *segments, features, P, center, bbox, height=H, width=W,
+                padding=gp.padding, depth_planes=gp.depth_planes,
+                grid_shape=tuple(int(g) for g in gp.grid_shape),
+                max_voxels=int(gp.max_number_of_marched_voxels),
+                rays_batch=self.rays_batch,
+            )
 
 
 class RayNetForwardPass(ForwardPass):
@@ -333,9 +351,10 @@ class RayNetForwardPass(ForwardPass):
             np.asarray(scene.bbox, np.float32).reshape(-1), device=dev
         )
         ref_indices = list(range(start, end, skip))
-        ray_idxs = {
-            i: self.get_valid_rays_per_image(scene, i) for i in ref_indices
-        }
+        ray_idxs = {}
+        for i in ref_indices:
+            with span("rays.index"):
+                ray_idxs[i] = self.get_valid_rays_per_image(scene, i)
         n_valid = {i: len(r) for i, r in ray_idxs.items()}
         group = self.ray_group = self._ray_group()
         # this process's rays of each image: all of them, or its span
@@ -367,37 +386,43 @@ class RayNetForwardPass(ForwardPass):
                 features, P, P_pinv, centers[i] = self._features_and_cameras(
                     scene, i
                 )
-                idxs = torch.as_tensor(
-                    np.ascontiguousarray(mine[i]), device=dev
-                )
-                segments[i] = segments_in_bbox(
-                    idxs, P_pinv, centers[i], bbox, H
-                )
-                scores[i] = fused.raynet_image_scores(
-                    *segments[i], features, P, **common,
-                )
+                with span("rays.upload"):
+                    idxs = torch.as_tensor(
+                        np.ascontiguousarray(mine[i]), device=dev
+                    )
+                with span("rays.segments"):
+                    segments[i] = segments_in_bbox(
+                        idxs, P_pinv, centers[i], bbox, H
+                    )
+                with span("scores"):
+                    scores[i] = fused.raynet_image_scores(
+                        *segments[i], features, P, **common,
+                    )
 
         def update(block, i, scatter_total, grid_acc, iteration):
             args = (block, scores[i], scatter_total, grid_acc, *segments[i],
                     centers[i], bbox)
             kw = dict(bp, first_iteration=(iteration == 0), prior=prior)
-            if group is None:
-                fused.raynet_image_update(*args, **kw)
-            else:
-                sharding.sharded_image_update(group, *args, **kw)
+            with span("sweep.first" if iteration == 0 else "sweep.message"):
+                if group is None:
+                    fused.raynet_image_update(*args, **kw)
+                else:
+                    sharding.sharded_image_update(group, *args, **kw)
 
         def depth(block, i, grid_acc):
             args = (block, scores[i], grid_acc, *segments[i], centers[i],
                     bbox)
-            if group is None:
-                return fused.raynet_image_depth(*args, **bp)
-            return sharding.sharded_image_depth(group, n_valid[i], *args,
-                                                **bp)
+            with span("sweep.depth"):
+                if group is None:
+                    return fused.raynet_image_depth(*args, **bp)
+                return sharding.sharded_image_depth(group, n_valid[i], *args,
+                                                    **bp)
 
         def depth_map(i, depth):
-            out = np.zeros(H * W, dtype=np.float32)
-            out[ray_idxs[i]] = depth
-            return out.reshape(W, H).T
+            with span("depth.scatter"):
+                out = np.zeros(H * W, dtype=np.float32)
+                out[ray_idxs[i]] = depth
+                return out.reshape(W, H).T
 
         if not on_device:
             depths = self._host_store_sweeps(
@@ -409,24 +434,28 @@ class RayNetForwardPass(ForwardPass):
         self.message_store = "device"
         # DDA order; a ray's count is the same in every sweep, so the
         # entries past it stay zero
-        messages = {
-            i: torch.zeros((rows[i], M), dtype=torch.float32, device=dev)
-            for i in ref_indices
-        }
-        grid_acc = torch.full((grid_size,), prior, dtype=torch.float32,
-                              device=dev)
+        with span("messages.alloc"):
+            messages = {
+                i: torch.zeros((rows[i], M), dtype=torch.float32, device=dev)
+                for i in ref_indices
+            }
+            grid_acc = torch.full((grid_size,), prior, dtype=torch.float32,
+                                  device=dev)
         with self.timer.phase("Message passing"):
             for iteration in range(self.bp_iterations):
-                scatter_total = torch.full(
-                    (grid_size,), prior, dtype=torch.float32, device=dev
-                )
+                with span("messages.alloc"):
+                    scatter_total = torch.full(
+                        (grid_size,), prior, dtype=torch.float32, device=dev
+                    )
                 for i in ref_indices:
                     update(messages[i], i, scatter_total, grid_acc, iteration)
                 grid_acc = scatter_total
 
         for i in ref_indices:
             with self.timer.phase("Per-pixel depth estimation"):
-                d = depth(messages[i], i, grid_acc).cpu().numpy()
+                d = depth(messages[i], i, grid_acc)
+                with span("depth.download"):
+                    d = d.cpu().numpy()
             yield depth_map(i, d)
 
     def _host_store_sweeps(self, rows, M, grid_size, prior, update, depth):
@@ -444,15 +473,20 @@ class RayNetForwardPass(ForwardPass):
                 store = message_store.HostMessageStore(
                     rows, M, dtype, self.messages_memmap_threshold, dev)
             self.message_store = store.kind
-            grid_acc = torch.full((grid_size,), prior, dtype=torch.float32,
-                                  device=dev)
+            with span("messages.alloc"):
+                grid_acc = torch.full((grid_size,), prior,
+                                      dtype=torch.float32, device=dev)
             # the first sweep writes the messages, a message sweep reads and
-            # writes them, the depth sweep only reads them
+            # writes them, the depth sweep only reads them; the phase's end
+            # follows the store's copy streams: the current stream waits
+            # for each upload, and the host for each download
             with self.timer.phase("Message passing"):
                 for iteration in range(self.bp_iterations):
-                    scatter_total = torch.full(
-                        (grid_size,), prior, dtype=torch.float32, device=dev
-                    )
+                    with span("messages.alloc"):
+                        scatter_total = torch.full(
+                            (grid_size,), prior, dtype=torch.float32,
+                            device=dev
+                        )
                     for i, block in store.blocks(order, upload=iteration > 0,
                                                  download=True):
                         update(block, i, scatter_total, grid_acc, iteration)
@@ -461,7 +495,8 @@ class RayNetForwardPass(ForwardPass):
                 depths = {i: depth(block, i, grid_acc)
                           for i, block in store.blocks(order, upload=True,
                                                        download=False)}
-                return {i: d.cpu().numpy() for i, d in depths.items()}
+                with span("depth.download"):
+                    return {i: d.cpu().numpy() for i, d in depths.items()}
         finally:
             if store is not None:
                 self.staged_bytes += store.staged_bytes

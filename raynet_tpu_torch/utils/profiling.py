@@ -1,11 +1,17 @@
-"""Per-phase wall-clock timers and ``torch.profiler`` traces.
+"""Phase timers, host spans and ``torch.profiler`` traces.
 
 Port of ``raynet_tpu/utils/profiling.py``, with the same phase labels
-("Features computation", "Message passing", "Per-pixel depth estimation")
-and the reference's print format. On a CUDA device every phase edge calls
-``torch.cuda.synchronize``, so a phase's time includes the device work it
-queued instead of only the time to enqueue it. Each phase is also a
-``torch.profiler.record_function`` range, so it shows in a ``trace``.
+("Features computation", "Message passing", "Per-pixel depth estimation").
+On a CUDA device a phase's time lies between two timing events recorded
+on the current stream at its edges, resolved when ``totals`` or
+``summary()`` is read, so a phase never waits for the device; on the CPU
+it is ``time.perf_counter`` between its edges.
+
+``span(label)`` names a step inside a phase or a pass: while a
+``torch.profiler`` records, a ``record_function`` range, which the Chrome
+trace puts on the clock of the device's kernels and copies; otherwise one
+shared null context that records nothing. Every phase opens its range
+through it, so an untraced pass opens no range at all.
 
 ``trace(log_dir)`` is the counterpart of the reference's ``jax.profiler``
 hook: it writes a Chrome trace (``<log_dir>/trace.json``) that
@@ -21,36 +27,60 @@ import torch
 TRACE_NAME = "trace.json"
 # Chrome-trace categories of work on the device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+_UNTRACED = contextlib.nullcontext()
+
+
+def span(label):
+    """A ``record_function`` range named ``label`` while a profiler
+    records, else a null context. Labels carry no image index, so a
+    trace sums them over images and passes; a span is closed before its
+    pass yields, so the consumer's work is never charged to it."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(label)
+    return _UNTRACED
 
 
 class PhaseTimer:
-    """Accumulating named timers."""
+    """Accumulating named timers: ``totals`` (seconds) and ``counts`` by
+    label. Work a phase queues on another stream must be joined to the
+    current stream before the phase ends."""
 
-    def __init__(self, verbose=True, device=None):
-        self.totals = {}
+    def __init__(self, device=None):
+        self._totals = {}
         self.counts = {}
-        self.verbose = verbose
+        self._pending = []  # (label, start, end) CUDA events not yet read
         self.device = None if device is None else torch.device(device)
 
-    def _sync(self):
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @property
+    def totals(self):
+        """Seconds by label; on a card, reading it waits for the end of the
+        last phase's work."""
+        for label, start, end in self._pending:
+            end.synchronize()
+            self._totals[label] += start.elapsed_time(end) * 1e-3
+        self._pending = []
+        return self._totals
 
     @contextlib.contextmanager
     def phase(self, label):
-        with torch.profiler.record_function(label):
-            self._sync()
-            t0 = time.perf_counter()
+        with span(label):
+            if self.device is None or self.device.type != "cuda":
+                t0 = time.perf_counter()
+                yield
+                self.add(label, time.perf_counter() - t0)
+                return
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
             yield
-            self._sync()
-            dt = time.perf_counter() - t0
-        self.add(label, dt)
-        if self.verbose:
-            print("%s - %s" % (label, dt))
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            self._pending.append((label, start, end))
+            self.add(label, 0.0)  # the count now, the time when read
 
     def add(self, label, dt):
         """Record an externally measured duration."""
-        self.totals[label] = self.totals.get(label, 0.0) + dt
+        self._totals[label] = self._totals.get(label, 0.0) + dt
         self.counts[label] = self.counts.get(label, 0) + 1
 
     def summary(self):

@@ -26,6 +26,8 @@ operands off 16-byte alignment) within
 2**-16 * (|x| @ |e|) of the float64 product of its rounded operands ("rna":
 only the f32 sums differ), its "rna" diagonal exact.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -643,3 +645,29 @@ def test_trace_holds_device_work(cuda, tmp_path):
     share = profiling.device_busy_share(
         intervals, profiling.annotation_window(events, "window"))
     assert 0.0 < share <= 1.0
+
+
+def test_phase_time_from_events_matches_a_synced_wall_time(cuda,
+                                                           monkeypatch):
+    """A phase around one known kernel (20 float32 products of 4096^2,
+    ~50 ms) reads within 5% of the host's wall time around the same work
+    synced at both ends, and the phase itself never synchronises."""
+    x = torch.randn((4096, 4096), device=cuda)
+    y = torch.empty_like(x)
+    for _ in range(2):  # cuBLAS's handle and workspace
+        torch.matmul(x, x, out=y)
+    sync = torch.cuda.synchronize
+    sync()
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: synced.append(a))
+    timer = profiling.PhaseTimer(device=cuda)
+    t0 = time.perf_counter()
+    with timer.phase("products"):
+        for _ in range(20):
+            torch.matmul(x, x, out=y)
+    sync()
+    wall = time.perf_counter() - t0
+    assert synced == []
+    assert timer.counts == {"products": 1}
+    assert timer.totals["products"] == pytest.approx(wall, rel=0.05)

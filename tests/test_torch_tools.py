@@ -96,7 +96,7 @@ def test_device_busy_share_counts_overlaps_once(intervals, window, share):
 
 
 def test_trace_writes_phases_and_reads_back(tmp_path):
-    timer = profiling.PhaseTimer(verbose=False)
+    timer = profiling.PhaseTimer()
     with profiling.trace(str(tmp_path)):
         with torch.profiler.record_function("outer"):
             with timer.phase("Plane sweep"):
