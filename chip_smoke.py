@@ -22,7 +22,11 @@ order, every phase failing loudly (nonzero exit):
    of view 0 in one launch (the plain version in spans), the kernel
    updating a message store in place as the raynet pass does: counts,
    messages, the scattered grid and depths, and every store entry past a
-   ray's count still zero;
+   ray's count still zero; then each launch again with the ray sums, as
+   the raynet pass makes it (written by the first sweep, read by the
+   message and depth sweeps), against the launch that counts: counts,
+   messages and depths bit for bit, the grid within the atomics' order,
+   and the stored totals against the plain float64 sums;
 5. K3 (voxel traversal) against its plain versions: its rows mode on the
    same batch (indices and counts identical, counts equal to K2's); its
    voxel-depth mode on the batch and then on all rays of view 0 in one
@@ -41,7 +45,8 @@ order, every phase failing loudly (nonzero exit):
    raynet with gamma 0.05, 3 BP iterations and the depth sweep. For each:
    the kernel launch counts, set to 0 just before the pass and read just
    after, each exactly as expected (one launch per reference image and
-   kernel, K2 once per image and sweep: raynet K1 2 and K2 8;
+   kernel, K2 once per image and sweep: raynet K1 2 and K2 8, 6 of them
+   reading the ray sums its first sweep of the image stored;
    multi_view_cnn K1 2; multi_view_cnn_voxel_space K1 2 and K3's
    voxel-depth mode 2; no other kernel), wall time, rays/s, phases, peak
    memory, the card's SM clock, temperature and power draw as it starts,
@@ -165,7 +170,8 @@ order, every phase failing loudly (nonzero exit):
 16. the multi-GPU path (``raynet_tpu_torch.parallel.sharding``): (a) the
    raynet pass of phase 6 with each image's rays split over 2 ranks, two
    spawned processes over gloo on the one card (NCCL will not put two
-   ranks on one GPU): each rank's launches exactly K1 2 and K2 8, 6 grid
+   ranks on one GPU): each rank's launches exactly K1 2 and K2 8, 6 of
+   them reading the ray sums its first sweep of the image stored, 6 grid
    all-reduces (2 images x 3 sweeps), its wall, phases and seconds in
    collectives, every rank's maps equal and against phase 6's on >= 0.999
    of the pixels within 1e-3 relative with identical masks; (b) the same
@@ -1752,6 +1758,7 @@ def _sharded_pass(group, model, gp, scene):
         torch.cuda.synchronize(group.device)
     for c in counters.values():
         c.launches = 0
+    bp_sweep.sums_read = 0
     group.reset_counts()
     t0 = time.perf_counter()
     maps = np.stack(list(fp.forward_pass(scene, (0, 2, 1))))
@@ -1761,6 +1768,7 @@ def _sharded_pass(group, model, gp, scene):
             "world_size": group.world_size, "rows_per_image": hi - lo,
             "sharded": fp.ray_group is group,
             "launches": {k: c.launches for k, c in counters.items()},
+            "sums_read": bp_sweep.sums_read,
             "grid_all_reduces": group.grid_all_reduces,
             "all_reduces": group.all_reduces,
             "collective_s": group.collective_s,
@@ -1880,6 +1888,10 @@ def phase_multi_gpu(check, dev, model, gp, scene, small, phase6, expect,
         check(r["sharded"] and r["launches"] == expect,
               "%s rank %d: sharded pass, launches %s (expect %s)"
               % (label, r["rank"], r["launches"], expect))
+        check(r["sums_read"] == sweeps,
+              "%s rank %d: %d K2 launches read the stored ray sums (2 "
+              "images x the 3 sweeps after the first)"
+              % (label, r["rank"], r["sums_read"]))
         check(r["grid_all_reduces"] == sweeps,
               "%s rank %d: %d grid all-reduces (2 images x 3 sweeps)"
               % (label, r["rank"], r["grid_all_reduces"]))
@@ -2068,7 +2080,11 @@ def main(argv=None):
     )
     from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
     from raynet_tpu_torch.ops import cuda_build
-    from raynet_tpu_torch.ops.bp_sweep import bp_sweep, bp_sweep_reference
+    from raynet_tpu_torch.ops.bp_sweep import (
+        bp_sweep,
+        bp_sweep_reference,
+        ray_totals,
+    )
     from raynet_tpu_torch.ops.mrf import log_prior
     from raynet_tpu_torch.ops.planesweep import (
         plane_sweep_cells_reference,
@@ -2306,6 +2322,56 @@ def main(argv=None):
               "mean %.3e; NaN in the same %d places: %s"
               % (label, ek_max, ek_mean, ep_max, ep_mean, n_nan, same_nan))
 
+    def bits(t):
+        return t.view(torch.int32)
+
+    def with_sums(label, seg, msgs, grid_acc, mode, k, gk, sums=None):
+        # the launch the raynet pass makes: the first sweep of an image
+        # writes its ray sums, the later sweeps read them. Held to the
+        # counting launch ``k`` (grid ``gk``) on the same inputs: counts,
+        # messages and depths bit for bit (NaN included), the grid as the
+        # float atomics' order leaves it. Returns the sums.
+        n = seg[0].shape[0]
+        if sums is None:
+            sums = (torch.zeros(n, dtype=torch.int32, device=dev),
+                    torch.zeros(n, device=dev))
+        gs = torch.zeros(G, device=dev)
+        store = None
+        if mode != "depth":
+            store = (torch.zeros((n, M), device=dev) if msgs is None
+                     else msgs.clone())
+        read = bp_sweep.sums_read
+        s_ = bp_sweep(*seg, store if mode == "message" else msgs, grid_acc,
+                      gs, center, bbox, GRID, M, prior, mode,
+                      messages_out=store, ray_sums=sums)
+        torch.cuda.synchronize()
+        name = "%s %s with stored ray sums" % (label, mode)
+        check(s_[1] is sums[0] and bool(torch.equal(s_[1], k[1])),
+              "%s: counts are the stored ones, equal to the counting "
+              "launch's" % name)
+        check(bp_sweep.sums_read == read + (mode != "first"),
+              "%s: sums_read %d -> %d" % (name, read, bp_sweep.sums_read))
+        if store is None:
+            check(bool(torch.equal(bits(s_[2]), bits(k[2]))),
+                  "%s: depths bit for bit the counting launch's" % name)
+            return sums
+        check(bool(torch.equal(bits(store), bits(k[0]))),
+              "%s: messages bit for bit the counting launch's" % name)
+        mostly_close(name + ": grid against the counting launch's", gs, gk)
+        if mode == "first":
+            t64 = torch.cat([
+                ray_totals(seg[2][lo:hi], plain_voxel_scores(
+                    bbox, seg[0][lo:hi], seg[1][lo:hi], seg[2][lo:hi], GRID,
+                    M)[1], sums[0][lo:hi], seg[0][lo:hi], seg[1][lo:hi],
+                    bbox, GRID)
+                for lo, hi in spans(n)])
+            same = float((bits(sums[1]) == bits(t64)).float().mean())
+            check(bool(torch.allclose(sums[1], t64, rtol=1e-6, atol=0,
+                                      equal_nan=True)),
+                  "%s: totals within rtol 1e-6 of the plain float64 sums "
+                  "(%.7f bit for bit)" % (name, same))
+        return sums
+
     def k2_checks(label, seg, moderate):
         """K2 in its three modes on segments and scores ``seg``: the first
         sweep, then message mode (if ``moderate``) on a seeded grid and
@@ -2314,8 +2380,9 @@ def main(argv=None):
         inputs). Returns the per-mode errors and the first sweep's
         counts."""
         out = {}
-        (mk, counts, _), gk, (m1, _, _), g1 = sweep_both(label, seg, None,
-                                                         None, "first")
+        k, gk, (m1, _, _), g1 = sweep_both(label, seg, None, None, "first")
+        mk, counts = k[0], k[1]
+        sums = with_sums(label, seg, None, None, "first", k, gk)
         ray = seg[1] - seg[0]
         log("  %s: %d rays march two or more cells on a zero-length segment"
             % (label, int(((ray * ray).sum(1) == 0).logical_and(counts > 1)
@@ -2338,7 +2405,7 @@ def main(argv=None):
             err = max(err, strict("%s first: grid" % label, gk, g1))
         out["first"] = {"max_abs_err": err}
         g1 = g1 + prior  # the next iteration's grid
-        del mk
+        del mk, k
         inputs = [("real grid", (m1, g1))]
         if moderate:
             # zero past each ray's count, as in the pass's store
@@ -2351,8 +2418,10 @@ def main(argv=None):
             del visited
         errs = {}
         for what, (mi, gi) in inputs:
-            (mk, _, _), gk, (mp, _, _), gpl = sweep_both(label, seg, mi, gi,
-                                                         "message")
+            k, gk, (mp, _, _), gpl = sweep_both(label, seg, mi, gi,
+                                                "message")
+            mk = k[0]
+            with_sums(label, seg, mi, gi, "message", k, gk, sums)
             g64 = torch.zeros(G, dtype=torch.float64, device=dev)
             m64, _, _ = plain_sweep(seg, mi, gi, g64, "message",
                                     torch.float64)
@@ -2366,15 +2435,16 @@ def main(argv=None):
             as_accurate(name + ": grid", gk, gpl, g64)
             if what == "real grid":
                 m2, g2 = mp, gpl + prior
-            del mk, mp, m64
+            del mk, k, mp, m64
         del m1
         out["message"] = {"max_abs_err": errs.get("moderate mu"),
                           "real_grid_max_abs_err": errs["real grid"]}
         inputs = [("real grid", (m2, g2))] + inputs[:-1]
         agree = {}
         for what, (mi, gi) in inputs:
-            (_, _, dk), _, (_, _, dp), _ = sweep_both(label, seg, mi, gi,
-                                                      "depth")
+            k, gk, (_, _, dp), _ = sweep_both(label, seg, mi, gi, "depth")
+            dk = k[2]
+            with_sums(label, seg, mi, gi, "depth", k, gk, sums)
             a, b = dk.cpu().numpy(), dp.cpu().numpy()
             agree[what] = rel_agreement(a, b, 1e-3)
             check(agree[what] >= 0.999 and np.array_equal(a > 0, b > 0),
@@ -2486,10 +2556,13 @@ def main(argv=None):
            k3_depth["image_ms"], k3_depth["image_bound_ms"]))
     for mode in k2:
         r, ri = times["K2 " + mode], times["K2 %s image" % mode]
+        rsi = times["K2 %s sums image" % mode]
+        k2[mode]["sums_image_ms"] = rsi["ms"]
         log("  K2 %s: %.3f ms, plain %.3f ms; bound %.4f ms (%.1f MB); one "
-            "whole image %.3f ms, bound %.4f ms (%.1f MB)"
+            "whole image %.3f ms, with stored ray sums %.3f ms, bound %.4f ms "
+            "(%.1f MB)"
             % (mode, r["ms"], r["plain_ms"], r["bound_ms"], r["nbytes"] / 1e6,
-               ri["ms"], ri["bound_ms"], ri["nbytes"] / 1e6))
+               ri["ms"], rsi["ms"], ri["bound_ms"], ri["nbytes"] / 1e6))
     del S_p, features
 
     # 6. the three passes end to end
@@ -2531,6 +2604,7 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats(dev)
         for c in counters.values():
             c.launches = 0
+        bp_sweep.sums_read = 0
         t0 = time.perf_counter()
         maps = list(fp.forward_pass(scene, (0, 2, 1)))
         wall = time.perf_counter() - t0
@@ -2545,6 +2619,12 @@ def main(argv=None):
             log("  phase %-28s %.3f s (%d)" % (k, v["total_s"], v["count"]))
         log("  launches", launches, "peak device memory %.2f GB" % peak_gb)
         check(launches == expect, "%s: launches %s" % (name, expect))
+        # every K2 sweep of an image after its first reads the stored sums
+        sums_expect = 2 * RayNetForwardPass.bp_iterations \
+            if name == "raynet" else 0
+        check(bp_sweep.sums_read == sums_expect,
+              "%s: K2 launches reading stored ray sums %d of %d"
+              % (name, bp_sweep.sums_read, launches["bp_sweep"]))
         allmaps = np.stack(maps)
         nz = allmaps[allmaps > 0]
         check(allmaps.shape == (2, H, W), "depth maps %s" % (allmaps.shape,))

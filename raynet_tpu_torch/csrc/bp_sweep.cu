@@ -17,7 +17,11 @@
 //   A. march up to M cells and hat-map the D plane scores onto each cell's
 //      centre (t projected on the segment, clipped to [1e-4, 1-1e-4], then
 //      interpolated between the two planes that bracket it); the count and
-//      the total T1 of the mapped scores s;
+//      the total T1 of the mapped scores s. Neither depends on the messages
+//      or the grid, so they are the same in every sweep of an image: given
+//      a totals array, the first-iteration sweep stores T1 there beside the
+//      count, and a message or depth sweep reads both (the SUMS variant)
+//      and skips this pass;
 //   B. message modes: the recurrence's total, sum_k mu_k excl_k c_k with
 //      c = clip(s / T1, 1e-5, 1-1e-5) and mu = sigmoid(grid[v] - own
 //      message) clipped to [1e-4, 1-1e-4] (the constant sigmoid(prior) on
@@ -59,10 +63,14 @@
 // scores, the visited messages read and written once, the visited grid
 // cells) are ~40 MB per 65,536 rays; the message rows now move as whole
 // 128-byte lines, with no zero tail and no scratch. What remains per
-// visited cell is three re-marches with hat mapping (~25 operations each,
-// the march's state in local memory), the double-precision recurrence with
-// two divisions, expf, logf and log1pf, one grid gather through the
-// read-only path (the 4 MB grid stays in L2) and one float atomicAdd.
+// visited cell is a march with hat mapping in each pass (~25 operations
+// each, the march's state in local memory): three in the first-iteration
+// and message sweeps and two in the depth sweep, one fewer each with stored
+// sums; the double-precision recurrence with two divisions, expf, logf and
+// log1pf; one grid gather through the read-only path and one float
+// atomicAdd. A 256x256x128 float32 grid is 33.5 MB, and a message sweep
+// touches two (grid_acc gathered, grid_out added to): more than the 50 MB
+// L2 holds.
 // 65,536 rays are one partial wave of resident threads, so a batch's
 // longest rays set its time; a whole image fills the card. Float atomics
 // make the grid's summation order vary from run to run.
@@ -124,13 +132,15 @@ __device__ __forceinline__ void store_tile(const float* tile, float* msg,
   }
 }
 
-template <int MODE>
+// SUMS: read each ray's count and T1 from counts and totals (message and
+// depth modes) instead of marching pass A.
+template <int MODE, bool SUMS>
 __global__ void __launch_bounds__(kThreads) bp_sweep_kernel(
     const float* __restrict__ ray_start, const float* __restrict__ ray_end,
     const float* __restrict__ S_planes, const float* msg_in,
     const float* __restrict__ grid_acc, float* __restrict__ grid_out,
     const float* __restrict__ camera_center, const float* __restrict__ bbox,
-    float* msg_out, int* __restrict__ counts,
+    float* msg_out, int* __restrict__ counts, float* __restrict__ totals,
     float* __restrict__ depth, int N, int M, int D, int gx, int gy, int gz,
     float prior) {
   extern __shared__ float smem[];
@@ -154,22 +164,32 @@ __global__ void __launch_bounds__(kThreads) bp_sweep_kernel(
 
   const Ray g = ray_setup(ray_start, ray_end, r, live, bbox, gx, gy, gz);
 
-  // A: the march's count and the mapped scores' total
+  // A: the march's count and the mapped scores' total, or those a first
+  // sweep stored
   int count = 0;
-  double total1 = 0.0;
-  if (live) {
-    VoxelMarch m;
-    if (march_begin(m, g.rs, g.re, g.bmin, g.bin, g.grid)) {
-      do {
-        total1 += hat_score(m, g, S, D);
-        ++count;
-      } while (count < M && march_advance(m));
+  float T1 = kTiny;
+  if (SUMS) {
+    if (live) {
+      count = counts[r];
+      T1 = totals[r];
     }
+  } else {
+    double total1 = 0.0;
+    if (live) {
+      VoxelMarch m;
+      if (march_begin(m, g.rs, g.re, g.bmin, g.bin, g.grid)) {
+        do {
+          total1 += hat_score(m, g, S, D);
+          ++count;
+        } while (count < M && march_advance(m));
+      }
+    }
+    if (live) counts[r] = count;
+    T1 = maxf((float)total1, kTiny);
+    if (MODE == kFirst && totals != nullptr && live) totals[r] = T1;
   }
-  if (live) counts[r] = count;
   const bool active = count > 1;
   const int n_read = active ? count : 0;  // messages this ray reads
-  const float T1 = maxf((float)total1, kTiny);
   const int warp_max = __reduce_max_sync(kFull, count);
   const float mu_const = occupancy_mu(prior);
   float* own = tile + lane * kTile;
@@ -276,18 +296,18 @@ __global__ void __launch_bounds__(kThreads) bp_sweep_kernel(
   }
 }
 
-template <int MODE>
+template <int MODE, bool SUMS>
 cudaError_t launch(const float* rs, const float* re, const float* S,
                    const float* msg_in, const float* grid_acc,
                    float* grid_out, const float* center, const float* bbox,
-                   float* msg_out, int* counts, float* depth, int N, int M,
-                   int D, int gx, int gy, int gz, float prior,
+                   float* msg_out, int* counts, float* totals, float* depth,
+                   int N, int M, int D, int gx, int gy, int gz, float prior,
                    cudaStream_t stream) {
   const int blocks = (N + kThreads - 1) / kThreads;
   const size_t smem = sizeof(float) * kWarps * (32 * (D | 1) + 32 * kTile);
-  bp_sweep_kernel<MODE><<<blocks, kThreads, smem, stream>>>(
+  bp_sweep_kernel<MODE, SUMS><<<blocks, kThreads, smem, stream>>>(
       rs, re, S, msg_in, grid_acc, grid_out, center, bbox, msg_out,
-      counts, depth, N, M, D, gx, gy, gz, prior);
+      counts, totals, depth, N, M, D, gx, gy, gz, prior);
   return cudaGetLastError();
 }
 
@@ -298,26 +318,34 @@ cudaError_t launch(const float* rs, const float* re, const float* S,
 // first-iteration mode); grid_out (G,) f32, atomically accumulated in
 // message modes, not overlapping grid_acc; camera_center (3,) f32; bbox
 // (6,) f32; messages_out (N, M) f32 (message modes), written for k < count
-// only, and may be messages_in itself; counts (N,) i32 out; depth (N,) f32 out
-// (depth mode). mode: 0 first iteration, 1 message, 2 depth. Returns
-// cudaGetLastError().
+// only, and may be messages_in itself; counts (N,) i32; totals (N,) f32 or
+// null; depth (N,) f32 out (depth mode). Without totals every mode marches
+// each ray's count and T1 and writes the count to counts. With totals the
+// first-iteration mode writes both (T1 to totals), and the message and
+// depth modes read both instead of marching them. mode: 0 first
+// iteration, 1 message, 2 depth. Returns cudaGetLastError().
 extern "C" int raynet_bp_sweep(
     const float* ray_start, const float* ray_end, const float* S_planes,
     const float* messages_in, const float* grid_acc, float* grid_out,
     const float* camera_center, const float* bbox,
-    float* messages_out, int* counts, float* depth, int N, int M, int D,
-    int gx, int gy, int gz, float prior, int mode, void* stream) {
+    float* messages_out, int* counts, float* totals, float* depth, int N,
+    int M, int D, int gx, int gy, int gz, float prior, int mode,
+    void* stream) {
   if (M < 1 || D < 2 || D > kMaxPlanes || mode < kFirst || mode > kDepth)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAYNET_BP_LAUNCH(MODE)                                               \
-  launch<MODE>(ray_start, ray_end, S_planes, messages_in, grid_acc,           \
-               grid_out, camera_center, bbox, messages_out, counts, depth, N, \
-               M, D, gx, gy, gz, prior, s)
-  const cudaError_t err = mode == kDepth     ? RAYNET_BP_LAUNCH(kDepth)
-                          : mode == kFirst   ? RAYNET_BP_LAUNCH(kFirst)
-                                             : RAYNET_BP_LAUNCH(kMessage);
+#define RAYNET_BP_LAUNCH(MODE, SUMS)                                          \
+  launch<MODE, SUMS>(ray_start, ray_end, S_planes, messages_in, grid_acc,     \
+                     grid_out, camera_center, bbox, messages_out, counts,     \
+                     totals, depth, N, M, D, gx, gy, gz, prior, s)
+  const bool sums = totals != nullptr;
+  const cudaError_t err =
+      mode == kFirst  ? RAYNET_BP_LAUNCH(kFirst, false)
+      : mode == kDepth ? (sums ? RAYNET_BP_LAUNCH(kDepth, true)
+                               : RAYNET_BP_LAUNCH(kDepth, false))
+      : sums           ? RAYNET_BP_LAUNCH(kMessage, true)
+                       : RAYNET_BP_LAUNCH(kMessage, false);
 #undef RAYNET_BP_LAUNCH
   return (int)err;
 }

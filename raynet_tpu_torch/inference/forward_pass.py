@@ -22,7 +22,9 @@ for each call it
    in place in float32 on the device: kept there while they fit
    ``messages_device_budget``, else kept in the host store
    (``message_store``: float32 or float16 arrays, or memmap spill files)
-   and staged through the device one image at a time;
+   and staged through the device one image at a time; the first sweep
+   also keeps each ray's march count and mapped-score total on the device
+   (``bp_sweep``'s ``ray_sums``), which the later sweeps read;
 4. runs one depth sweep and yields a ``(W, H).T`` depth map per view.
 
 The Hartmann pass scores patch quintuples instead (see its class).
@@ -361,16 +363,17 @@ class RayNetForwardPass(ForwardPass):
         mine = {i: r[slice(*group.span(len(r)))] if group else r
                 for i, r in ray_idxs.items()}
         rows = {i: len(r) for i, r in mine.items()}
-        # per ray: the scores and the two segment endpoints stay on the
-        # device; the messages too while everything fits
-        fixed = sum(n * (D + 6) * 4 for n in rows.values())
+        # per ray: the scores, the two segment endpoints and the march's
+        # count and total stay on the device; the messages too while
+        # everything fits
+        fixed = sum(n * (D + 8) * 4 for n in rows.values())
         on_device = fixed + sum(rows.values()) * M * 4 \
             <= self.messages_device_budget
         if fixed > self.messages_device_budget:
             raise RuntimeError(
-                "the scores and segments of %d views need %.2f GB of device "
-                "memory, over messages_device_budget = %.2f GB; run fewer "
-                "views per call" % (len(ref_indices), fixed / 1e9,
+                "the scores, segments and march sums of %d views need %.2f "
+                "GB of device memory, over messages_device_budget = %.2f GB; "
+                "run fewer views per call" % (len(ref_indices), fixed / 1e9,
                                     self.messages_device_budget / 1e9)
             )
         common = dict(height=H, width=W, padding=gp.padding, depth_planes=D,
@@ -380,7 +383,7 @@ class RayNetForwardPass(ForwardPass):
 
         for i in ref_indices:
             self._features_and_cameras(scene, i)
-        segments, scores, centers = {}, {}, {}
+        segments, scores, centers, ray_sums = {}, {}, {}, {}
         with self.timer.phase("Plane sweep"):
             for i in ref_indices:
                 features, P, P_pinv, centers[i] = self._features_and_cameras(
@@ -398,11 +401,19 @@ class RayNetForwardPass(ForwardPass):
                     scores[i] = fused.raynet_image_scores(
                         *segments[i], features, P, **common,
                     )
+                if self.bp_iterations:
+                    # each ray's march count and mapped-score total: the
+                    # first sweep writes them, the later sweeps read them
+                    ray_sums[i] = (
+                        torch.zeros(rows[i], dtype=torch.int32, device=dev),
+                        torch.zeros(rows[i], dtype=torch.float32, device=dev),
+                    )
 
         def update(block, i, scatter_total, grid_acc, iteration):
             args = (block, scores[i], scatter_total, grid_acc, *segments[i],
                     centers[i], bbox)
-            kw = dict(bp, first_iteration=(iteration == 0), prior=prior)
+            kw = dict(bp, first_iteration=(iteration == 0), prior=prior,
+                      ray_sums=ray_sums[i])
             with span("sweep.first" if iteration == 0 else "sweep.message"):
                 if group is None:
                     fused.raynet_image_update(*args, **kw)
@@ -412,11 +423,13 @@ class RayNetForwardPass(ForwardPass):
         def depth(block, i, grid_acc):
             args = (block, scores[i], grid_acc, *segments[i], centers[i],
                     bbox)
+            # without a message sweep no sweep wrote the sums: it counts
+            kw = dict(bp, ray_sums=ray_sums.get(i))
             with span("sweep.depth"):
                 if group is None:
-                    return fused.raynet_image_depth(*args, **bp)
+                    return fused.raynet_image_depth(*args, **kw)
                 return sharding.sharded_image_depth(group, n_valid[i], *args,
-                                                    **bp)
+                                                    **kw)
 
         def depth_map(i, depth):
             with span("depth.scatter"):

@@ -45,7 +45,7 @@ SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "raynet_bp_sweep": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
     "raynet_voxel_traversal": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

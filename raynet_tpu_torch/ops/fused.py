@@ -159,15 +159,23 @@ def raynet_image_scores(
     )
 
 
+def _sum_rows(ray_sums, lo, hi):
+    """Rows [lo, hi) of ``bp_sweep``'s ``ray_sums`` pair, or None."""
+    return None if ray_sums is None else tuple(t[lo:hi] for t in ray_sums)
+
+
 def raynet_image_scatter(
     messages, scores, grid_acc, ray_start, ray_end, camera_center, bbox, *,
     grid_shape, max_voxels, first_iteration, prior, rays_batch,
+    ray_sums=None,
 ):
     """One BP sweep over all rays of one image.
 
     Updates the image's message store ``messages`` (rows, M) in place and
     returns the image's messages summed into a zero grid (G,); ``grid_acc``
-    is the previous iteration's grid.
+    is the previous iteration's grid. ``ray_sums``: the image's (counts
+    (rows,) int32, totals (rows,) float32), which the first iteration
+    writes and the later ones read (``bp_sweep``), or None.
     """
     # the image's sum starts from zero, as the JAX package's batches do:
     # added onto the prior-filled grid directly, small messages would round
@@ -183,6 +191,7 @@ def raynet_image_scatter(
             bbox, grid_shape, max_voxels,
             prior if first_iteration else 0.0,
             "first" if first_iteration else "message", messages_out=rows,
+            ray_sums=_sum_rows(ray_sums, lo, hi),
         )
     return scatter
 
@@ -199,14 +208,15 @@ def raynet_image_update(messages, scores, scatter_total, grid_acc, *args,
 
 def raynet_image_depth(
     messages, scores, grid_acc, ray_start, ray_end, camera_center, bbox, *,
-    grid_shape, max_voxels, rays_batch,
+    grid_shape, max_voxels, rays_batch, ray_sums=None,
 ):
-    """Posterior depth of every ray of one image, (rows,) float32."""
+    """Posterior depth of every ray of one image, (rows,) float32;
+    ``ray_sums`` as ``raynet_image_scatter``'s, read."""
     return _by_span(
         lambda lo, hi: bp_sweep(
             ray_start[lo:hi], ray_end[lo:hi], scores[lo:hi],
             messages[lo:hi], grid_acc, None, camera_center, bbox, grid_shape,
-            max_voxels, 0.0, "depth",
+            max_voxels, 0.0, "depth", ray_sums=_sum_rows(ray_sums, lo, hi),
         )[2],
         messages.shape[0], rays_batch, messages.device,
     )

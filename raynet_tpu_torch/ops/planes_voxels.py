@@ -64,6 +64,13 @@ def depth_planes_to_voxels(S_planes, t, counts, depth_planes):
     of them. K2 (``csrc/bp_sweep.cu``) evaluates the same form. Its
     gradient is the hat sum's, g (1 - f) and g f (``_Interpolate``).
     """
+    return _masked_renorm(hat_scores(S_planes, t, depth_planes), counts)
+
+
+def hat_scores(S_planes, t, depth_planes):
+    """The hat-mapped scores (N, M) at the segment parameters t (N, M), as
+    ``depth_planes_to_voxels`` interpolates them, before its mask and
+    renormalisation."""
     D = depth_planes
     x = t * float(D - 1)
     lo = torch.nan_to_num(x.floor(), nan=0.0).clamp(0, D - 2)
@@ -71,7 +78,7 @@ def depth_planes_to_voxels(S_planes, t, counts, depth_planes):
     lo = lo.to(torch.int64)
     s_lo = torch.gather(S_planes, 1, lo)
     s_hi = torch.gather(S_planes, 1, lo + 1)
-    return _masked_renorm(_Interpolate.apply(s_lo, s_hi, f), counts)
+    return _Interpolate.apply(s_lo, s_hi, f)
 
 
 class _Interpolate(torch.autograd.Function):

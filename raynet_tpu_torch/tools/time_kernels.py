@@ -4,7 +4,8 @@ Counterpart of ``tools/time_kernels.py``. On the kernel rig (the 6-image
 ring scene at 1600x1200, seeded ``simple_cnn`` bf16 features of one view
 set: V=5, D=32, F=32; one batch of ``--rays`` rays through the grid
 128x128x64 at M=384), it times K1 (plane sweep), K2 (BP sweep) in its
-first, message and depth modes, K3 (voxel traversal) in its rows mode
+first, message and depth modes (each also with the first sweep's stored
+ray sums, rows "K2 <mode> sums"), K3 (voxel traversal) in its rows mode
 ("K3") and its voxel-depth mode ("K3 depth"), P1 (TMA box copy, case D2)
 and P2 (f32 product on the tensor cores, "rna" mode, 128^3 and, row "P2
 1024", 1024^3), and beside P1 and P2 the one PyTorch call that computes
@@ -219,7 +220,10 @@ def image_segments(rig):
 def _k2_rows(row, suffix, rig, rs, re, S, visits, n_cells):
     """K2 in its three modes on segments ``rs``, ``re`` and scores ``S``,
     on the grids and messages of a real first and second sweep, each
-    launch updating a message store in place as the forward pass does."""
+    launch updating a message store in place as the forward pass does;
+    then the three again with the first sweep's stored ray sums, as the
+    forward pass launches them: written in first mode, read in the others
+    (rows "K2 <mode> sums")."""
     from ..ops import bp_sweep as k2
     from ..ops.mrf import log_prior
 
@@ -233,7 +237,9 @@ def _k2_rows(row, suffix, rig, rs, re, S, visits, n_cells):
                 GRID, M, prior, mode)
 
     m1 = torch.zeros((n, M), device=dev)
-    k2.bp_sweep(*args("first", None, None), messages_out=m1)
+    sums = (torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.zeros(n, device=dev))
+    k2.bp_sweep(*args("first", None, None), messages_out=m1, ray_sums=sums)
     g1 = scatter + prior
     m2 = m1.clone()
     scatter.zero_()
@@ -251,6 +257,13 @@ def _k2_rows(row, suffix, rig, rs, re, S, visits, n_cells):
             lambda: k2.bp_sweep(*a, messages_out=store),
             (lambda: k2.bp_sweep_reference(*a)) if n <= N_RAYS else None,
             visits=visits, cells=n_cells, rays=n)
+    for mode in roofline.BP_MODES:
+        grid_acc, msgs, store = inputs[mode]
+        a = args(mode, grid_acc, msgs)
+        row("K2 %s sums%s" % (mode, suffix),
+            roofline.bp_sweep_cost(mode, n, D, visits, n_cells),
+            lambda: k2.bp_sweep(*a, messages_out=store, ray_sums=sums),
+            None, visits=visits, cells=n_cells, rays=n)
 
 
 SPLIT_KEYS = ("host_us", "device_ms", "library_host_us", "library_device_ms")

@@ -338,3 +338,187 @@ def test_wrapper_takes_plain_path_on_cpu(rig):
     assert d1 is None and d2 is None
     with pytest.raises(ValueError, match="mode"):
         tbp.bp_sweep(*args, g1, *tail[:-1], "posterior")
+
+
+def _sums(n):
+    return (torch.zeros(n, dtype=torch.int32), torch.zeros(n))
+
+
+def _hat_totals(rig, rs, re, grid, M):
+    """Each ray's hat-mapped scores, by the formula (the two planes that
+    bracket the clipped t of the voxel centre), summed in float64 over its
+    visits of the JAX march, then in float32 floored at 1e-30."""
+    from raynet_tpu_torch.ops.planes_voxels import project_voxels_to_rays
+    from raynet_tpu_torch.ops.ray_marching import (
+        unflatten_voxel_indices,
+        voxel_centers,
+    )
+
+    flat, jc = jrm.voxel_traversal_flat(
+        jnp.asarray(BBOX), jnp.asarray(rs.numpy()), jnp.asarray(re.numpy()),
+        grid, M,
+    )
+    vox = unflatten_voxel_indices(_t(flat).to(torch.int64), grid)
+    t = project_voxels_to_rays(voxel_centers(vox, _t(BBOX), grid), rs, re)
+    x = t * float(D - 1)
+    lo = torch.nan_to_num(x.floor(), nan=0.0).clamp(0, D - 2)
+    f = x - lo
+    S = _t(rig["S"])
+    s_lo = torch.gather(S, 1, lo.long())
+    s = s_lo + (torch.gather(S, 1, lo.long() + 1) - s_lo) * f
+    visited = torch.arange(M)[None, :] < _t(jc)[:, None]
+    total = torch.where(visited, s.double(), 0.0).sum(1)
+    return _t(jc), total.float().clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("mode", ["first", "message", "depth"])
+def test_stored_ray_sums(rig, mode):
+    """``ray_sums``: the first sweep fills the counts with the march's and
+    the totals with the float64 sum of each ray's hat-mapped scores (in
+    float32, floored at 1e-30); a message or depth sweep that reads them
+    returns the same messages, counts, scatter and depths as one that
+    counts, and its counts are the stored tensor."""
+    grid, M = CASES[0]
+    G = int(np.prod(grid))
+    rs, re = _segments(rig)
+    # the last 10 rays miss the grid: they visit no voxel
+    rs[-10:], re[-10:] = _t(BBOX[:3]) - 10.0, _t(BBOX[:3]) - 9.0
+    S, center = _t(rig["S"]), _t(rig["center"])
+    sums = _sums(rs.shape[0])
+    _, c_first, _ = tbp.bp_sweep(rs, re, S, None, None, torch.zeros(G),
+                                 center, _t(BBOX), grid, M, PRIOR, "first",
+                                 ray_sums=sums)
+    assert c_first is sums[0]
+    if mode == "first":
+        counts, totals = _hat_totals(rig, rs, re, grid, M)
+        assert int(counts.max()) > 1 and int((counts == 0).sum()) > 0
+        assert torch.equal(sums[0], counts)
+        torch.testing.assert_close(sums[1], totals, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert float(sums[1][counts == 0].max()) == np.float32(1e-30)
+        return
+    msgs, grid_acc = _moderate_inputs(rig, grid, M, seed=5)
+    out = []
+    for ray_sums in (None, sums):
+        grid_out = torch.zeros(G) if mode == "message" else None
+        m, c, d = tbp.bp_sweep(rs, re, S, _t(msgs), _t(grid_acc), grid_out,
+                               center, _t(BBOX), grid, M, PRIOR, mode,
+                               ray_sums=ray_sums)
+        out.append((m, c, d, grid_out))
+    (m0, c0, d0, g0), (m1, c1, d1, g1) = out
+    assert c1 is sums[0] and torch.equal(c0, c1)
+    if mode == "message":
+        assert torch.equal(m0, m1) and torch.equal(g0, g1)
+        assert m1.abs().max() > 0.1
+    else:
+        assert torch.equal(d0, d1) and float(d1.max()) > 10.0
+
+
+@pytest.mark.parametrize("case", ["image_sweeps", "forward_pass",
+                                  "forward_pass_no_bp"])
+def test_ray_sums_threaded_through_the_pass(rig, mock_scene_dir,
+                                            monkeypatch, case):
+    """The raynet pass's per-image sweeps, in 700-ray spans, with the
+    image's ``ray_sums`` written by the first sweep and read by the later
+    ones: stores, scatters and depths identical to the sweeps that count;
+    and a small ``RayNetForwardPass`` on the CPU, which threads each image's
+    sums through them, gives the depth maps of the same pass with the sums
+    dropped. With ``bp_iterations = 0`` no sweep writes the sums, so the
+    depth sweep gets none and counts: the prior grid's depths."""
+    grid, M = CASES[0]
+    if case.startswith("forward_pass"):
+        iterations = 0 if case == "forward_pass_no_bp" else 3
+        from raynet_tpu_torch.common.generation_parameters import (
+            GenerationParameters,
+        )
+        from raynet_tpu_torch.inference import RayNetForwardPass
+        from raynet_tpu_torch.models.feature_extractor import (
+            FeatureExtractor,
+        )
+
+        scene = RestrepoScene(str(mock_scene_dir))
+        gp = GenerationParameters(
+            depth_planes=D, neighbors=4, patch_shape=(11, 11, 3),
+            grid_shape=np.array(grid, dtype=np.int32),
+            max_number_of_marched_voxels=M, padding=PAD,
+            sampling_type="sample_points_in_bbox", gamma_mrf=0.05,
+        )
+        model = FeatureExtractor("simple_cnn", seed=0, device="cpu")
+        update, depth = tfused.raynet_image_update, tfused.raynet_image_depth
+        given = []
+
+        def run():
+            fp = RayNetForwardPass(model, gp, None, scene.image_shape, 700,
+                                   device="cpu")
+            fp.bp_iterations = iterations
+            return np.stack(list(fp.forward_pass(scene, (0, 2, 1))))
+
+        def spy(fn):
+            def call(*args, ray_sums=None, **kw):
+                given.append(ray_sums)
+                return fn(*args, ray_sums=ray_sums, **kw)
+            return call
+
+        monkeypatch.setattr(tfused, "raynet_image_update", spy(update))
+        monkeypatch.setattr(tfused, "raynet_image_depth", spy(depth))
+        threaded = run()
+        assert len(given) == 2 * (iterations + 1)
+        if iterations:
+            assert all(s is not None for s in given)
+            # the first sweep of each image wrote its sums
+            assert int(given[0][0].max()) > 1
+        else:
+            assert given == [None, None]
+        monkeypatch.setattr(tfused, "raynet_image_update",
+                            lambda *a, ray_sums=None, **kw: update(*a, **kw))
+        monkeypatch.setattr(tfused, "raynet_image_depth",
+                            lambda *a, ray_sums=None, **kw: depth(*a, **kw))
+        assert np.array_equal(threaded, run())
+        assert (threaded > 0).mean() > 0.5
+        return
+    G = int(np.prod(grid))
+    n = H * W
+    rs, re = _segments(rig)
+    S, center = _t(rig["S"]), _t(rig["center"])
+    sums = _sums(n)
+    kw = dict(grid_shape=grid, max_voxels=M, rays_batch=700)
+    results = []
+    for ray_sums in (None, sums):
+        store = torch.zeros(n, M)
+        grid_acc = torch.full((G,), PRIOR)
+        scatters = []
+        for it in range(3):
+            total = torch.full((G,), PRIOR)
+            tfused.raynet_image_update(
+                store, S, total, grid_acc, rs, re, center, _t(BBOX),
+                first_iteration=it == 0, prior=PRIOR, ray_sums=ray_sums, **kw)
+            scatters.append(total)
+            grid_acc = total
+        d = tfused.raynet_image_depth(store, S, grid_acc, rs, re, center,
+                                      _t(BBOX), ray_sums=ray_sums, **kw)
+        results.append((store, scatters, d))
+    (m0, s0, d0), (m1, s1, d1) = results
+    assert torch.equal(m0, m1) and torch.equal(d0, d1)
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+    assert int(sums[0].max()) > 1 and float(d1.max()) > 10.0
+
+
+def test_ray_sums_checked(rig):
+    """The wrapper takes ``ray_sums`` only as a pair of contiguous (N,)
+    int32 counts and float32 totals on the rays' device."""
+    grid, M = CASES[0]
+    rs, re = _segments(rig, 100)
+    counts, totals = _sums(100)
+    args = (rs, re, _t(rig["S"][:100]), None, None,
+            torch.zeros(int(np.prod(grid))), _t(rig["center"]), _t(BBOX),
+            grid, M, PRIOR, "first")
+    for sums, match in (
+        ((counts, totals.double()), "totals must be torch.float32"),
+        ((counts.long(), totals), "counts must be torch.int32"),
+        ((counts[:-1], totals), "counts must have shape"),
+        ((counts, torch.zeros(200)[::2]), "totals must be contiguous"),
+        ((counts,), "pair"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            tbp.bp_sweep(*args, ray_sums=sums)
+    assert not counts.any() and not totals.any()

@@ -13,7 +13,10 @@ scatter rtol=1e-4, atol=1e-5 on short rays (M <= 64) with inputs that keep
 the BP recurrence well conditioned (float atomics reorder the grid sums),
 store entries the kernel must not write exact, NaN (from NaN grid cells)
 in the same places as the plain version, depth within 1e-5 relative on
->= 0.999 of the rays; K3 indices and counts
+>= 0.999 of the rays; K2 reading stored ray sums equal to K2 counting them
+bit for bit (messages, counts, depths; the grid within the atomics'
+rtol 1e-4, atol 1e-5), its first sweep's totals equal to the plain float64
+sums rounded to float32; K3 indices and counts
 exact; K3's voxel-depth mode counts and zero masks exact, depth within
 1e-3 relative on >= 0.999 of the rays and every other ray at a voxel whose
 plain mapped score is within rtol 1e-5 of the ray's maximum (the plain
@@ -254,6 +257,84 @@ def test_bp_sweep_kernel_in_place_matches_plain(cuda, mode, grid, M, shape,
     torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["first", "message", "depth"])
+@pytest.mark.parametrize("shape, n", [((H, W), None), ((450, 500), 200003)],
+                         ids=["4800", "200003"])
+def test_bp_sweep_kernel_stored_sums(cuda, mode, shape, n):
+    """K2 with ``ray_sums``: the first sweep writes the counts a launch
+    without them computes and the plain float64 totals, with its messages
+    unchanged; a message or depth launch that reads them, on the same
+    inputs and the same grid_acc, gives the counting launch's messages (in
+    place), counts and depths bit for bit, and its grid within the float
+    atomics' tolerance. ``sums_read`` counts the launches that read."""
+    grid, M = (32, 24, 16), 64
+    rs, re, S, msgs, grid_acc, center, bbox = _bp_inputs(
+        cuda, grid, M, shape=shape, n=n)
+    n, G = rs.shape[0], int(np.prod(grid))
+    tail = (center, bbox, grid, M, PRIOR)
+    sums = (torch.zeros(n, dtype=torch.int32, device=cuda),
+            torch.zeros(n, device=cuda))
+    bp.bp_sweep.launches = bp.bp_sweep.sums_read = 0
+    m_sums, c_sums, _ = bp.bp_sweep(rs, re, S, None, None,
+                                    torch.zeros(G, device=cuda), *tail,
+                                    "first", ray_sums=sums)
+    assert c_sums is sums[0] and bp.bp_sweep.sums_read == 0
+    if mode == "first":
+        m0, c0, _ = bp.bp_sweep(rs, re, S, None, None,
+                                torch.zeros(G, device=cuda), *tail, "first")
+        _, vox, cp, _ = vd.plain_voxel_scores(bbox, rs, re, S, grid, M)
+        totals = bp.ray_totals(S, vox, cp, rs, re, bbox, grid)
+        torch.cuda.synchronize()
+        assert torch.equal(c0, sums[0]) and torch.equal(cp, sums[0])
+        assert torch.equal(m0, m_sums)
+        torch.testing.assert_close(sums[1], totals, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert bp.bp_sweep.launches == 2 and bp.bp_sweep.sums_read == 0
+        return
+    out = []
+    for ray_sums in (None, sums):
+        store = msgs.clone()
+        gk = torch.zeros(G, device=cuda) if mode == "message" else None
+        read = bp.bp_sweep.sums_read
+        m, c, d = bp.bp_sweep(
+            rs, re, S, store, grid_acc, gk, *tail, mode,
+            messages_out=store if mode == "message" else None,
+            ray_sums=ray_sums)
+        assert bp.bp_sweep.sums_read == read + (ray_sums is not None)
+        out.append((store, c, d, gk))
+    torch.cuda.synchronize()
+    (m0, c0, d0, g0), (m1, c1, d1, g1) = out
+    assert c1 is sums[0] and torch.equal(c0, c1)
+    assert int(c1.max()) > 1 and int(c1[-100:].max()) == 0
+    assert torch.equal(m0, m1)
+    if mode == "message":
+        assert not torch.equal(m1, msgs)
+        torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-5)
+    else:
+        assert torch.equal(m1, msgs) and torch.equal(d0, d1)
+        assert float(d1.max()) > 10.0
+    assert bp.bp_sweep.launches == 3 and bp.bp_sweep.sums_read == 1
+
+
+def test_bp_sweep_rejects_bad_ray_sums(cuda):
+    rs, re, S, msgs, grid_acc, center, bbox = _bp_inputs(cuda, (16, 16, 16),
+                                                         32)
+    n = rs.shape[0]
+    counts = torch.zeros(n, dtype=torch.int32, device=cuda)
+    totals = torch.zeros(n, device=cuda)
+    bp.bp_sweep.launches = bp.bp_sweep.sums_read = 0
+    for sums, match in (
+        ((counts, totals.double()), "totals must be torch.float32"),
+        ((counts[:-1], totals), "counts must have shape"),
+        ((counts, totals.cpu()), "totals must be on"),
+        ((counts,), "pair"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            bp.bp_sweep(rs, re, S, msgs, grid_acc, None, center, bbox,
+                        (16, 16, 16), 32, PRIOR, "depth", ray_sums=sums)
+    assert bp.bp_sweep.launches == 0 and bp.bp_sweep.sums_read == 0
+
+
 def test_bp_sweep_kernel_single_voxel_rays(cuda):
     """One-voxel rays: zero messages, nothing scattered, and the depth of
     that voxel's centre in depth mode."""
@@ -286,13 +367,15 @@ def test_forward_pass_on_the_card_matches_the_cpu(cuda):
     ))()
     model = FeatureExtractor("simple_cnn", seed=0, device=cuda)
     ps.plane_sweep_scores.launches = 0
-    bp.bp_sweep.launches = 0
+    bp.bp_sweep.launches = bp.bp_sweep.sums_read = 0
     fp = RayNetForwardPass(model, gp, None, scene.image_shape, 700,
                            device=cuda)
     gpu = np.stack(list(fp.forward_pass(scene, (0, 2, 1))))
-    # once per image, and once per image and sweep, whatever rays_batch
+    # once per image, and once per image and sweep, whatever rays_batch;
+    # every sweep after an image's first reads its stored sums
     assert ps.plane_sweep_scores.launches == 2
     assert bp.bp_sweep.launches == 2 * 4
+    assert bp.bp_sweep.sums_read == 2 * 3
     # the CPU pass reads the same features (computed on the card)
     fp_cpu = RayNetForwardPass(model, gp, None, scene.image_shape, 700,
                                device="cpu")

@@ -34,8 +34,8 @@ from conftest import MOCK_H as H, MOCK_W as W
 torch.set_num_threads(2)
 
 M, D, VIEWS = 24, 8, (0, 3, 1)
-# 3 views of H*W rays: scores and segments 290,304 bytes, with all
-# messages on the device 787,968
+# 3 views of H*W rays: scores, segments and the march sums 331,776 bytes,
+# with all messages on the device 829,440
 BUDGET = 700_000
 SPILL_PREFIX = "raynet_tpu_torch_msgs_"
 STORES = {

@@ -53,10 +53,10 @@ STEP_RIG = dict(h=24, w=32, v=3, d=4, padding=5, f=8, grid=(8, 8, 8), m=12,
 # the mock scene's pass (tests/test_torch_forward_pass.py's flags)
 VIEWS = (0, 3, 1)
 PASS_BATCH = 700
-# each rank's scores and segments fit, its messages do not (2 ranks:
-# 145,152 + 248,832 bytes; 3 ranks: 96,768 + 165,888)
-HOST_BUDGET = 150_000
-# one process's: 290,304 + 497,664 (tests/test_torch_message_store.py's)
+# each rank's scores, segments and march sums fit, its messages do not
+# (2 ranks: 165,888 + 248,832 bytes; 3 ranks: 110,592 + 165,888)
+HOST_BUDGET = 200_000
+# one process's: 331,776 + 497,664 (tests/test_torch_message_store.py's)
 ONE_PROCESS_HOST_BUDGET = 700_000
 CLI_FLAGS = [
     "--scene_idx", "0", "--forward_pass_factory", "raynet", "--rays_batch",

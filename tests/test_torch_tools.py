@@ -147,3 +147,37 @@ def test_time_kernels_rig_parameters():
     assert (gp.depth_planes, gp.max_number_of_marched_voxels) == (D, M)
     assert tuple(gp.grid_shape) == time_kernels.GRID == (128, 128, 64)
     assert time_kernels.N_RAYS == N
+
+
+def test_k2_rows_time_each_mode_with_and_without_stored_sums():
+    """``_k2_rows`` (on the CPU its launches take the plain path): a row per
+    mode that counts, then one per mode with the first sweep's stored ray
+    sums, each launch returning what the counting launch returns."""
+    import types
+
+    gen = torch.Generator().manual_seed(0)
+    n = 64
+    bbox = torch.tensor([-3.0, -3.0, -3.0, 3.0, 3.0, 3.0])
+    rs = -3.0 + 6.0 * torch.rand(n, 3, generator=gen)
+    re = -3.0 + 6.0 * torch.rand(n, 3, generator=gen)
+    S = torch.softmax(torch.randn(n, time_kernels.D, generator=gen), -1)
+    rig = types.SimpleNamespace(center=torch.tensor([0.0, 0.0, -20.0]),
+                                bbox=bbox)
+    rows = {}
+
+    def row(name, cost, kernel, reference, **counts):
+        assert reference is None or name.endswith(("first", "message",
+                                                   "depth"))
+        rows[name] = [t.clone() if t is not None else None for t in kernel()]
+
+    time_kernels._k2_rows(row, "", rig, rs, re, S, 100, 50)
+    modes = ("first", "message", "depth")
+    assert list(rows) == ["K2 " + m for m in modes] + [
+        "K2 %s sums" % m for m in modes]
+    for mode in modes:
+        counted, stored = rows["K2 " + mode], rows["K2 %s sums" % mode]
+        assert int(counted[1].max()) > 1
+        assert torch.equal(counted[1], stored[1])
+        if mode == "depth":
+            assert torch.equal(counted[2], stored[2])
+    assert torch.equal(rows["K2 first"][0], rows["K2 first sums"][0])
