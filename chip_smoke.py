@@ -111,11 +111,11 @@ order, every phase failing loudly (nonzero exit):
    200x150 (focal scaled), one reference view, 4 neighbours, D = 32
    (960,000 quintuples; at 400x300 the phase took 85 s): wall
    time, quintuples/s, phases, peak memory, the share of the float32 peak
-   its patch scoring reaches, the card's clock, temperature and power as
-   it starts, no port kernel launched; the scores of 1,024 rays of view 0
-   on the card against the CPU's (same weights, max abs diff <= 2e-5), their
-   argmax planes (>= 0.999 agree, or the card's plane ties the CPU's
-   maximum within rtol 1e-5); then ``raynet_forward_torch
+   its net reaches (phase "Patch net", the patch gather apart), the card's
+   clock, temperature and power as it starts, no port kernel launched;
+   the scores of 1,024 rays of view 0 on the card against the CPU's (same
+   weights, max abs diff <= 2e-5), their argmax planes (>= 0.999 agree,
+   or the card's plane ties the CPU's maximum within rtol 1e-5); then ``raynet_forward_torch
    --forward_pass_factory hartmann_fp --cnn_factory hartmann_cnn`` on the
    rig on disk, its map within 1e-3 relative of the same pass's on >= 0.999
    of the pixels;
@@ -697,17 +697,17 @@ def phase_hartmann(check, dev, small, counters):
         launches = {k: c.launches for k, c in counters.items()}
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         phases = dict(fp.timer.totals)
-        scoring = phases["Patch scoring"]
-        share = flops * n_quint / scoring / PEAK_F32_FLOPS
+        net = phases["Patch net"]
+        share = flops * n_quint / net / PEAK_F32_FLOPS
         log("  wall %.3f s, %.0f quintuples/s; peak device memory %.2f GB; "
             "chunk %d quintuples" % (wall, n_quint / wall, peak_gb,
                                      fp.quintuples_per_call))
         for k, v in phases.items():
             log("  phase %-28s %.3f s" % (k, v))
-        log("  %d FLOP a quintuple; patch scoring at %.2f TFLOP/s, %.3f of "
-            "the f32 peak (%.0f TFLOP/s, TF32 off)"
-            % (flops, flops * n_quint / scoring / 1e12, share,
-               PEAK_F32_FLOPS / 1e12))
+        log("  %d FLOP a quintuple; the net (phase \"Patch net\", the "
+            "gather apart) at %.2f TFLOP/s, %.3f of the f32 peak (%.0f "
+            "TFLOP/s, TF32 off)" % (flops, flops * n_quint / net / 1e12,
+                                    share, PEAK_F32_FLOPS / 1e12))
         check(launches == dict.fromkeys(counters, 0),
               "no port kernel on the hartmann path: launches %s" % launches)
         check(dm.shape == (h, w) and bool(np.isfinite(dm).all())

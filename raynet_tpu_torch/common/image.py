@@ -6,7 +6,7 @@ Files are decoded with Pillow. Axis conventions: the x-axis runs along
 image COLUMNS (width), the y-axis along ROWS (height); pixels are
 homogeneous (3, 1) column vectors [x, y, 1]^T. ``rays()`` enumerates pixels
 COLUMN-MAJOR (u outer, v inner) to match the ray indexing of the forward
-pass.
+pass; ``camera_rays`` computes them from a camera alone.
 """
 import numpy as np
 import torch
@@ -172,11 +172,19 @@ class Image:
 
         Returns (camera_center (4,1), rays (N, 4)) with N = W*H.
         """
-        u = np.repeat(np.arange(self.width), self.height)
-        v = np.tile(np.arange(self.height), self.width)
-        pixels = np.stack([u, v, np.ones_like(u)]).astype(np.float64)
-        rays = project(self._camera.P_pinv, pixels)
-        return self._camera.center, rays
+        return camera_rays(self._camera, self.height, self.width)
+
+
+def camera_rays(camera, height, width):
+    """Back-projections of every pixel of a ``height`` x ``width`` image
+    through ``camera`` (its ``P_pinv`` and ``center``), column-major (u
+    outer, v inner), in float64: (camera_center (4, 1), rays (N, 4)),
+    N = W*H. Any scene's cameras have these attributes, so the sampling
+    schemes take their rays from here."""
+    u = np.repeat(np.arange(width), height)
+    v = np.tile(np.arange(height), width)
+    pixels = np.stack([u, v, np.ones_like(u)]).astype(np.float64)
+    return camera.center, project(camera.P_pinv, pixels)
 
 
 def padded_images(images, patch_size):

@@ -22,6 +22,7 @@ from ..utils.geometry import (
     ray_aabbox_intersection,
     ray_ray_intersection,
 )
+from .image import camera_rays
 
 
 def _homogeneous(points_xyz):
@@ -81,14 +82,16 @@ class SamplingInBboxScheme(SamplingScheme):
         return pts.astype(np.float32)  # (4, N, D); homogeneous row stays 1
 
     def sample_points_across_rays(self, scene, i):
-        camera_center, rays = scene.get_image(i).rays()
+        camera_center, rays = camera_rays(scene.get_image(i).camera,
+                                          *scene.image_shape)
         directions = rays.T - camera_center
         return self._rays_to_points(
             camera_center, directions, scene.bbox.reshape(-1)
         )
 
     def sample_points_across_rays_batched(self, scene, i, batch):
-        camera_center, rays = scene.get_image(i).rays()
+        camera_center, rays = camera_rays(scene.get_image(i).camera,
+                                          *scene.image_shape)
         directions = (rays.T - camera_center)[:, batch]
         return self._rays_to_points(
             camera_center, directions, scene.bbox.reshape(-1)
@@ -119,7 +122,8 @@ class SamplingInRangeScheme(SamplingScheme):
         return pts.astype(np.float32)
 
     def _unit_directions(self, scene, i):
-        camera_center, rays = scene.get_image(i).rays()
+        camera_center, rays = camera_rays(scene.get_image(i).camera,
+                                          *scene.image_shape)
         directions = rays.T - camera_center
         return camera_center, directions / np.sqrt(
             (directions ** 2).sum(axis=0))

@@ -522,7 +522,8 @@ class RayNetForwardPass(ForwardPass):
 class HartmannForwardPass(ForwardPass):
     """Patch-based Hartmann et al. baseline (factory name: hartmann_fp).
 
-    For each reference view: the scheme's points of every (ray, plane), all
+    For each reference view: its view set ``scene.get_view_idxs`` (the
+    reference first), the scheme's points of every (ray, plane), all
     projected into every view in float64 and rounded half to even (as
     ``np.round``); each chunk of quintuples gathered on the device from the
     zero-bordered views (``common.image.gather_patches``) and scored by one
@@ -536,7 +537,14 @@ class HartmannForwardPass(ForwardPass):
     its features, averaged over views and cells). On the card a chunk holds
     as many quintuples as ``memory_fraction`` of the free memory allows;
     on the CPU ``rays_batch`` quintuples; ``quintuples_per_call`` records
-    the last chunk.
+    the last chunk, ``quintuples`` and ``predict_calls`` count the
+    quintuples scored and the model calls over the object's calls.
+
+    Spans: ``patch.sample`` (the host's sampling), ``patch.project`` and
+    ``patch.pad`` (the projection; the view stack's upload and zero
+    border), ``patch.gather`` and ``patch.net`` once a chunk, each in its
+    phase ("Patch gather", "Patch net"), ``depth.download`` (the argmax to
+    the host) and ``patch.depth`` (the host's point selection and norm).
     """
 
     memory_fraction = 0.5
@@ -547,6 +555,8 @@ class HartmannForwardPass(ForwardPass):
                  device="cuda"):
         super().__init__(model, generation_params, sampling_scheme,
                          image_shape, rays_batch, filter_out_rays, device)
+        self.quintuples = 0
+        self.predict_calls = 0
 
     def _chunk(self, views, patch_shape):
         """Quintuples per model call."""
@@ -580,20 +590,26 @@ class HartmannForwardPass(ForwardPass):
         _, n, d = points.shape
         ps = tuple(gp.patch_shape[:2])
         with self.timer.phase("Projection"):
-            pixels = self.project_pixels(images, points.reshape(3, n * d))
-            padded = padded_images(torch.as_tensor(
-                np.stack([im.image for im in images]), device=self.device),
-                ps)
+            with span("patch.project"):
+                pixels = self.project_pixels(images,
+                                             points.reshape(3, n * d))
+            with span("patch.pad"):
+                padded = padded_images(torch.as_tensor(
+                    np.stack([im.image for im in images]),
+                    device=self.device), ps)
         scores = torch.empty(n * d, dtype=torch.float32, device=self.device)
         chunk = self.quintuples_per_call = self._chunk(len(images),
                                                         gp.patch_shape)
-        with self.timer.phase("Patch scoring"):
-            for off in range(0, n * d, chunk):
+        for off in range(0, n * d, chunk):
+            with self.timer.phase("Patch gather"), span("patch.gather"):
                 quint = gather_patches(padded, pixels[:, off:off + chunk], ps)
+            with self.timer.phase("Patch net"), span("patch.net"):
                 pred = self._model.predict(quint)
                 pred = torch.as_tensor(pred, device=self.device)
                 scores[off:off + len(quint)] = pred[..., 0].reshape(
                     len(quint), -1).mean(dim=1)
+            self.quintuples += len(quint)
+            self.predict_calls += 1
         return scores.reshape(n, d)
 
     def forward_pass(self, scene, images_range):
@@ -603,19 +619,23 @@ class HartmannForwardPass(ForwardPass):
         H, W = scene.image_shape
         gp = self._generation_params
         for ref_idx in range(start, end, skip):
-            images = scene.get_image_with_neighbors(ref_idx, gp.neighbors)
-            with self.timer.phase("Sampling"):
+            images = [scene.get_image(j)
+                      for j in scene.get_view_idxs(ref_idx, gp.neighbors)]
+            with self.timer.phase("Sampling"), span("patch.sample"):
                 points = np.asarray(
                     self._sampling_scheme.sample_points_across_rays(
                         scene, ref_idx))[:3]
             _, n, _ = points.shape
             scores = self.image_scores(images, points)
             with self.timer.phase("Per-pixel depth estimation"):
-                best = scores.argmax(dim=1).cpu().numpy()
-            pts = points[:, np.arange(n), best].T
-            center = images[0].camera.center[:3, 0]
-            depth = np.linalg.norm(pts - center[None], axis=-1)
-            yield np.minimum(depth.reshape(W, H).T, 800)
+                with span("depth.download"):
+                    best = scores.argmax(dim=1).cpu().numpy()
+            with span("patch.depth"):
+                pts = points[:, np.arange(n), best].T
+                center = images[0].camera.center[:3, 0]
+                depth = np.linalg.norm(pts - center[None], axis=-1)
+                depth_map = np.minimum(depth.reshape(W, H).T, 800)
+            yield depth_map
 
 
 _FACTORIES = {

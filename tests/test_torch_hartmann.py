@@ -255,8 +255,8 @@ def test_hartmann_pass_stub_equals_jax(mock_scene_dir):
         assert a.shape == (H, W) and a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
         assert a.max() <= 800
-    assert set(fp.timer.totals) >= {"Sampling", "Projection", "Patch scoring",
-                                    "Per-pixel depth estimation"}
+    assert set(fp.timer.totals) >= {"Sampling", "Projection", "Patch gather",
+                                    "Patch net", "Per-pixel depth estimation"}
 
 
 def test_hartmann_pass_cnn_route_matches_jax(mock_scene_dir):
