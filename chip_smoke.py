@@ -2619,6 +2619,9 @@ def main(argv=None):
             log("  phase %-28s %.3f s (%d)" % (k, v["total_s"], v["count"]))
         log("  launches", launches, "peak device memory %.2f GB" % peak_gb)
         check(launches == expect, "%s: launches %s" % (name, expect))
+        # view 0's map is waited for after view 1's work was queued
+        check(fp.overlapped_views == 1, "%s: views overlapped %d of 2"
+              % (name, fp.overlapped_views))
         # every K2 sweep of an image after its first reads the stored sums
         sums_expect = 2 * RayNetForwardPass.bp_iterations \
             if name == "raynet" else 0

@@ -44,9 +44,12 @@ on every rank.
 
 Each host step of a pass (an image's pad, upload and CNN launches; a
 view's ray indices, their upload and segments; each kernel call; a view's
-depth download and scatter) is a ``utils.profiling.span`` of a fixed name,
-a ``record_function`` range only while a profiler records, nested in its
-phase or directly in the pass, and closed before the pass yields.
+depth map, built on the device and queued for the host, and the wait for
+it) is a ``utils.profiling.span`` of a fixed name, a ``record_function``
+range only while a profiler records, nested in its phase or directly in
+the pass, and closed before the pass yields. A pass queues the next
+view's device work (the raynet pass: every view's) before the host waits
+for a map, so that the card is not left idle behind the host's wait.
 
 What the JAX package adds on top of this — beam/band planners, box classes,
 the plan prefetcher and the VMEM retry — exists because Mosaic has no
@@ -96,7 +99,12 @@ class ForwardPass:
         self._image_feature_cache = OrderedDict()
         self.max_cached_image_features = generation_params.neighbors + 2
         self._scene_token = None
+        self._scene_bbox = None
+        self._all_rays = {}
         self.timer = PhaseTimer(device=self.device)
+        # views whose map the host waited for after a later view's device
+        # work was queued, over the object's calls
+        self.overlapped_views = 0
 
     def _check_scene(self, scene):
         """Drop per-scene caches when called on a different scene."""
@@ -108,6 +116,16 @@ class ForwardPass:
                 self._scene_token = lambda s=scene: s
             self._feature_cache.clear()
             self._image_feature_cache.clear()
+            self._scene_bbox = None
+
+    def _bbox(self, scene):
+        """The scene's bbox (6,) float32 on the device, uploaded once a
+        scene."""
+        if self._scene_bbox is None:
+            self._scene_bbox = torch.as_tensor(
+                np.asarray(scene.bbox, np.float32).reshape(-1),
+                device=self.device)
+        return self._scene_bbox
 
     @staticmethod
     def create_depth_map_from_distribution(
@@ -156,12 +174,32 @@ class ForwardPass:
         """Column-major ray indices of image ``i``; with ``filter_out_rays``
         only the rays whose ground-truth depth is nonzero."""
         H, W = scene.image_shape
-        idxs = np.arange(H * W, dtype=np.int32)
+        idxs = self._every_ray(H, W)
         if self._filter_out_rays:
             grid = idxs.reshape(W, H).T
             G = scene.get_depth_map(i)
             idxs = grid[G != 0].ravel()
         return idxs
+
+    def _every_ray(self, height, width):
+        """Column-major indices of every ray of a (height, width) image:
+        one read-only array per shape, which ``_DepthMaps`` knows by its
+        identity."""
+        key = (height, width)
+        if key not in self._all_rays:
+            idxs = np.arange(height * width, dtype=np.int32)
+            idxs.flags.writeable = False
+            self._all_rays[key] = idxs
+        return self._all_rays[key]
+
+    def _wait_map(self, maps, pending, overlapped):
+        """The host's wait for a view's map queued by ``maps.start``;
+        ``overlapped``: a later view's device work was queued before it."""
+        with self.timer.phase("Per-pixel depth estimation"):
+            with span("depth.download"):
+                depth_map = maps.wait(pending)
+        self.overlapped_views += overlapped
+        return depth_map
 
     def _image_features(self, scene, img_idx):
         """Feature map of ONE image on ``self.device``, cached per image."""
@@ -219,6 +257,62 @@ def _check_images_range(images_range):
     return images_range
 
 
+class _DepthMaps:
+    """The (H, W) depth maps of one call's views, each built on the
+    call's device from the view's depths and ray indices, and copied to
+    the host without blocking it: ``start`` queues a view's map and its
+    copy, ``wait`` hands the map over once the copy is done.
+
+    A view whose rays are ``every_ray`` (every ray in column-major order,
+    as ``get_valid_rays_per_image`` gives them without
+    ``filter_out_rays``) takes its ray indices from a range made on the
+    device once a call, and its depths already are the (W, H) map; any
+    other view's indices are uploaded, and its depths scattered on the
+    device into a zeroed map. On a CUDA device each map lands in
+    page-locked host memory of its own, since the caller may keep every
+    map, and an event marks the end of its copy; on the CPU it is a plain
+    copy. The map is the (W, H) array's transpose, as the numpy scatter
+    made it."""
+
+    def __init__(self, device, height, width, every_ray):
+        self.device, self.height, self.width = device, height, width
+        self.every_ray = every_ray
+        self._range = None
+
+    def rays(self, idxs):
+        """A view's ray indices ``idxs`` as int32 on the device."""
+        if idxs is not self.every_ray:
+            return torch.tensor(idxs, dtype=torch.int32, device=self.device)
+        if self._range is None:
+            self._range = torch.arange(len(idxs), dtype=torch.int32,
+                                       device=self.device)
+        return self._range
+
+    def start(self, depth, rays):
+        """Queue the map of the depths ``depth`` of the rays ``rays`` (as
+        ``rays`` gave them) and its copy to the host."""
+        n = self.height * self.width
+        if rays is not self._range:
+            full = torch.zeros(n, dtype=torch.float32, device=self.device)
+            depth = full.index_copy_(0, rays.long(),
+                                     depth.to(torch.float32))
+        cuda = self.device.type == "cuda"
+        host = torch.empty(n, dtype=torch.float32, pin_memory=cuda)
+        host.copy_(depth, non_blocking=cuda)
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
+    def wait(self, pending):
+        """The (H, W) float32 map of a view ``start`` queued."""
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return host.numpy().reshape(self.width, self.height).T
+
+
 class _PerViewDepthPass(ForwardPass):
     """A pass whose depth of a ray depends only on its own view set: one
     per-image depth of every reference view, a ``(W, H).T`` depth map
@@ -231,13 +325,14 @@ class _PerViewDepthPass(ForwardPass):
 
     def forward_pass(self, scene, images_range):
         """Yield one (H, W) float32 depth map per reference image of
-        ``images_range`` = (start, end, skip)."""
+        ``images_range`` = (start, end, skip). Each view's work is queued
+        before the host waits for the previous view's map."""
         start, end, skip = _check_images_range(images_range)
         self._check_scene(scene)
         H, W = scene.image_shape
-        bbox = torch.as_tensor(
-            np.asarray(scene.bbox, np.float32).reshape(-1), device=self.device
-        )
+        bbox = self._bbox(scene)
+        maps = _DepthMaps(self.device, H, W, self._every_ray(H, W))
+        pending = None
         for ref_idx in range(start, end, skip):
             with span("rays.index"):
                 ray_idxs = self.get_valid_rays_per_image(scene, ref_idx)
@@ -246,19 +341,18 @@ class _PerViewDepthPass(ForwardPass):
             )
             with self.timer.phase("Per-pixel depth estimation"):
                 with span("rays.upload"):
-                    idxs = torch.as_tensor(np.ascontiguousarray(ray_idxs),
-                                           device=self.device)
+                    idxs = maps.rays(ray_idxs)
                 with span("rays.segments"):
                     segments = segments_in_bbox(idxs, P_pinv, center, bbox, H)
                 depth = self._image_depth(segments, features, P, center,
                                           bbox, H, W)
-                with span("depth.download"):
-                    depth = depth.cpu().numpy()
             with span("depth.scatter"):
-                depth_map = np.zeros(H * W, dtype=np.float32)
-                depth_map[ray_idxs] = depth
-                depth_map = depth_map.reshape(W, H).T
-            yield depth_map
+                queued = maps.start(depth, idxs)
+            if pending is not None:
+                yield self._wait_map(maps, pending, overlapped=True)
+            pending = queued
+        if pending is not None:
+            yield self._wait_map(maps, pending, overlapped=False)
 
 
 class MultiViewCNNForwardPass(_PerViewDepthPass):
@@ -337,7 +431,8 @@ class RayNetForwardPass(ForwardPass):
 
     def forward_pass(self, scene, images_range):
         """Yield one (H, W) float32 depth map per reference image of
-        ``images_range`` = (start, end, skip)."""
+        ``images_range`` = (start, end, skip). Every view's depth sweep
+        and map are queued before the host waits for the first map."""
         start, end, skip = _check_images_range(images_range)
         self._check_scene(scene)
         H, W = scene.image_shape
@@ -349,9 +444,8 @@ class RayNetForwardPass(ForwardPass):
         M = int(gp.max_number_of_marched_voxels)
         D = int(gp.depth_planes)
         dev = self.device
-        bbox = torch.as_tensor(
-            np.asarray(scene.bbox, np.float32).reshape(-1), device=dev
-        )
+        bbox = self._bbox(scene)
+        maps = _DepthMaps(dev, H, W, self._every_ray(H, W))
         ref_indices = list(range(start, end, skip))
         ray_idxs = {}
         for i in ref_indices:
@@ -360,9 +454,9 @@ class RayNetForwardPass(ForwardPass):
         n_valid = {i: len(r) for i, r in ray_idxs.items()}
         group = self.ray_group = self._ray_group()
         # this process's rays of each image: all of them, or its span
-        mine = {i: r[slice(*group.span(len(r)))] if group else r
-                for i, r in ray_idxs.items()}
-        rows = {i: len(r) for i, r in mine.items()}
+        mine = {i: group.span(n) if group else (0, n)
+                for i, n in n_valid.items()}
+        rows = {i: hi - lo for i, (lo, hi) in mine.items()}
         # per ray: the scores, the two segment endpoints and the march's
         # count and total stay on the device; the messages too while
         # everything fits
@@ -383,19 +477,17 @@ class RayNetForwardPass(ForwardPass):
 
         for i in ref_indices:
             self._features_and_cameras(scene, i)
-        segments, scores, centers, ray_sums = {}, {}, {}, {}
+        idxs, segments, scores, centers, ray_sums = {}, {}, {}, {}, {}
         with self.timer.phase("Plane sweep"):
             for i in ref_indices:
                 features, P, P_pinv, centers[i] = self._features_and_cameras(
                     scene, i
                 )
                 with span("rays.upload"):
-                    idxs = torch.as_tensor(
-                        np.ascontiguousarray(mine[i]), device=dev
-                    )
+                    idxs[i] = maps.rays(ray_idxs[i])
                 with span("rays.segments"):
                     segments[i] = segments_in_bbox(
-                        idxs, P_pinv, centers[i], bbox, H
+                        idxs[i][slice(*mine[i])], P_pinv, centers[i], bbox, H
                     )
                 with span("scores"):
                     scores[i] = fused.raynet_image_scores(
@@ -433,24 +525,31 @@ class RayNetForwardPass(ForwardPass):
 
         def depth_map(i, depth):
             with span("depth.scatter"):
-                out = np.zeros(H * W, dtype=np.float32)
-                out[ray_idxs[i]] = depth
-                return out.reshape(W, H).T
+                return maps.start(depth, idxs[i])
 
-        if not on_device:
+        if on_device:
+            depths = self._device_sweeps(
+                rows, M, grid_size, prior, update, depth)
+        else:
             depths = self._host_store_sweeps(
                 rows, M, grid_size, prior, update, depth)
-            for i in ref_indices:
-                yield depth_map(i, depths[i])
-            return
+        pending = [depth_map(i, depths.pop(i)) for i in ref_indices]
+        for k, queued in enumerate(pending):
+            yield self._wait_map(maps, queued,
+                                 overlapped=k + 1 < len(pending))
 
+    def _device_sweeps(self, rows, M, grid_size, prior, update, depth):
+        """The BP and depth sweeps with the messages on the device; returns
+        {image: depths (rows,) float32 on the device}, every sweep queued
+        and none waited for."""
+        dev = self.device
         self.message_store = "device"
         # DDA order; a ray's count is the same in every sweep, so the
         # entries past it stay zero
         with span("messages.alloc"):
             messages = {
-                i: torch.zeros((rows[i], M), dtype=torch.float32, device=dev)
-                for i in ref_indices
+                i: torch.zeros((n, M), dtype=torch.float32, device=dev)
+                for i, n in rows.items()
             }
             grid_acc = torch.full((grid_size,), prior, dtype=torch.float32,
                                   device=dev)
@@ -460,21 +559,17 @@ class RayNetForwardPass(ForwardPass):
                     scatter_total = torch.full(
                         (grid_size,), prior, dtype=torch.float32, device=dev
                     )
-                for i in ref_indices:
-                    update(messages[i], i, scatter_total, grid_acc, iteration)
+                for i, block in messages.items():
+                    update(block, i, scatter_total, grid_acc, iteration)
                 grid_acc = scatter_total
-
-        for i in ref_indices:
-            with self.timer.phase("Per-pixel depth estimation"):
-                d = depth(messages[i], i, grid_acc)
-                with span("depth.download"):
-                    d = d.cpu().numpy()
-            yield depth_map(i, d)
+        with self.timer.phase("Per-pixel depth estimation"):
+            return {i: depth(block, i, grid_acc)
+                    for i, block in messages.items()}
 
     def _host_store_sweeps(self, rows, M, grid_size, prior, update, depth):
         """The BP and depth sweeps with the messages in the host store;
-        returns {image: depths (rows,) float32}. The store, its spill files
-        included, is gone when this returns or raises."""
+        returns {image: depths (rows,) float32 on the device}. The store,
+        its spill files included, is gone when this returns or raises."""
         dev = self.device
         order = list(rows)
         dtype = message_store.host_messages_dtype(
@@ -505,11 +600,9 @@ class RayNetForwardPass(ForwardPass):
                         update(block, i, scatter_total, grid_acc, iteration)
                     grid_acc = scatter_total
             with self.timer.phase("Per-pixel depth estimation"):
-                depths = {i: depth(block, i, grid_acc)
-                          for i, block in store.blocks(order, upload=True,
-                                                       download=False)}
-                with span("depth.download"):
-                    return {i: d.cpu().numpy() for i, d in depths.items()}
+                return {i: depth(block, i, grid_acc)
+                        for i, block in store.blocks(order, upload=True,
+                                                     download=False)}
         finally:
             if store is not None:
                 self.staged_bytes += store.staged_bytes

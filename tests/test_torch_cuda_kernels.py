@@ -27,9 +27,13 @@ to 1024^3, on shapes that leave its block tiles partly empty, and on
 operands off 16-byte alignment) within
 2**-9 * (|x| @ |e|) of the float64 product (TF32 operands) and within
 2**-16 * (|x| @ |e|) of the float64 product of its rounded operands ("rna":
-only the f32 sums differ), its "rna" diagonal exact.
+only the f32 sums differ), its "rna" diagonal exact; the voxel-space and
+raynet passes' depth maps bit for bit the numpy scatter of their depths,
+in page-locked memory, and a call whose features are cached free of
+synchronising operations.
 """
 import time
+import warnings
 
 import numpy as np
 import pytest
@@ -43,6 +47,7 @@ from raynet_tpu_torch.inference import (
 )
 from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
 from raynet_tpu_torch.ops import bp_sweep as bp
+from raynet_tpu_torch.ops import fused
 from raynet_tpu_torch.ops import planesweep as ps
 from raynet_tpu_torch.ops import ray_marching as rm
 from raynet_tpu_torch.ops import voxel_depth as vd
@@ -382,6 +387,67 @@ def test_forward_pass_on_the_card_matches_the_cpu(cuda):
     cpu = np.stack(list(fp_cpu.forward_pass(scene, (0, 2, 1))))
     assert np.array_equal(gpu > 0, cpu > 0)
     assert np.mean(np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu)) >= 0.999
+
+
+def _tensor_of(array):
+    """The tensor a numpy array's memory belongs to."""
+    while isinstance(array, np.ndarray):
+        array = array.base
+    return array
+
+
+@pytest.mark.parametrize("cls, op", [
+    (MultiViewCNNVoxelSpaceForwardPass, "mvcnn_voxel_image_depth"),
+    (RayNetForwardPass, "raynet_image_depth"),
+], ids=["voxel", "raynet"])
+def test_depth_maps_land_pinned_and_a_cached_call_never_syncs(cuda, cls, op,
+                                                              monkeypatch):
+    """Each map is the numpy scatter of the depths its op returned, bit
+    for bit, in page-locked memory; the second call on the object (every
+    feature, camera and the bbox cached) makes no synchronising call:
+    each view's map arrives by its own event."""
+    scene = RingScene(6, 36, 48, 400.0, angle_step=0.05)
+    gp = type("GP", (), dict(
+        depth_planes=8, neighbors=4, padding=PAD,
+        grid_shape=np.array([12, 12, 12], np.int32),
+        max_number_of_marched_voxels=24, gamma_mrf=0.05,
+    ))()
+    model = FeatureExtractor("simple_cnn", seed=0, device=cuda)
+    produce = getattr(fused, op)
+    depths = []
+
+    def recorded(*args, **kw):
+        depth = produce(*args, **kw)
+        depths.append(depth.clone())
+        return depth
+
+    monkeypatch.setattr(fused, op, recorded)
+    views = (0, 3, 1)
+    n = len(range(*views))
+    fp = cls(model, gp, None, scene.image_shape, 700, device=cuda)
+    maps = list(fp.forward_pass(scene, views))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            maps += list(fp.forward_pass(scene, views))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [str(w.message) for w in caught
+            if "synchroniz" in str(w.message)] == []
+    assert fp.overlapped_views == 2 * (n - 1)
+    H, W = scene.image_shape
+    assert len(maps) == len(depths) == 2 * n
+    for m, d in zip(maps, depths):
+        want = np.zeros(H * W, dtype=np.float32)
+        want[np.arange(H * W)] = d.cpu().numpy()
+        want = want.reshape(W, H).T
+        assert m.dtype == want.dtype and m.shape == want.shape
+        assert m.strides == want.strides
+        assert np.array_equal(np.ascontiguousarray(m).view(np.uint32),
+                              np.ascontiguousarray(want).view(np.uint32))
+        assert _tensor_of(m).is_pinned()
 
 
 def _traversal_inputs(device, geometry):

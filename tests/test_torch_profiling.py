@@ -35,7 +35,7 @@ PARENTS = {
 VIEWS = (0, 3, 1)
 
 
-def _pass(factory, host_store=False):
+def _pass(factory, host_store=False, filter_out_rays=False):
     scene = RingScene(4, 24, 32, 55.0, angle_step=0.3, seed=1)
     gp = GenerationParameters(
         depth_planes=4, neighbors=2, patch_shape=(11, 11, 3),
@@ -44,6 +44,7 @@ def _pass(factory, host_store=False):
     model = FeatureExtractor("simple_cnn", seed=0, device="cpu")
     fp = get_forward_pass_factory(factory)(model, gp, None,
                                            scene.image_shape, 200,
+                                           filter_out_rays=filter_out_rays,
                                            device="cpu")
     if factory == RAYNET:
         fp.bp_iterations = 2
