@@ -19,12 +19,11 @@ for each call it
 3. runs ``bp_iterations`` message sweeps over all reference views against
    one shared voxel log-odds grid, reset to the prior log(g/(1-g)) at every
    iteration, with the per-image messages (rays, M) in DDA order updated
-   in place in float32 on the device: kept there while they fit
-   ``messages_device_budget``, else kept in the host store
-   (``message_store``: float32 or float16 arrays, or memmap spill files)
-   and staged through the device one image at a time; the first sweep
-   also keeps each ray's march count and mapped-score total on the device
-   (``bp_sweep``'s ``ray_sums``), which the later sweeps read;
+   in place in float32 on the device, each sweep one loop over the blocks
+   of the call's ``message_store`` (kept on the device, or staged from
+   the host); the first sweep also keeps each ray's march count and
+   mapped-score total on the device (``bp_sweep``'s ``ray_sums``), which
+   the later sweeps read;
 4. runs one depth sweep and yields a ``(W, H).T`` depth map per view.
 
 The Hartmann pass scores patch quintuples instead (see its class).
@@ -55,7 +54,7 @@ What the JAX package adds on top of this — beam/band planners, box classes,
 the plan prefetcher and the VMEM retry — exists because Mosaic has no
 in-kernel gather, and is not ported.
 """
-import time
+import functools
 import weakref
 from collections import OrderedDict
 
@@ -386,13 +385,10 @@ class MultiViewCNNVoxelSpaceForwardPass(_PerViewDepthPass):
 class RayNetForwardPass(ForwardPass):
     """Full pipeline with MRF BP over all views (factory name: raynet).
 
-    The per-image messages stay on the device while they fit
-    ``messages_device_budget`` beside the scores and segments; over it they
-    live in the host store (``message_store.HostMessageStore``, the JAX
-    package's attributes and defaults below) and each image's block is
-    staged through the device for each sweep. The sizes alone choose, and
-    the pass records its choice in ``message_store``: "device",
-    "host_f32", "host_f16" or "memmap".
+    The per-image messages live in the store that
+    ``message_store.choose_store`` picks by size alone (the JAX package's
+    attributes and defaults below), and the pass records its choice in
+    ``message_store``: "device", "host_f32", "host_f16" or "memmap".
     """
 
     bp_iterations = 3
@@ -436,6 +432,24 @@ class RayNetForwardPass(ForwardPass):
         start, end, skip = _check_images_range(images_range)
         self._check_scene(scene)
         H, W = scene.image_shape
+        maps = _DepthMaps(self.device, H, W, self._every_ray(H, W))
+        ref_indices = list(range(start, end, skip))
+        depths, idxs = self._sweeps(scene, ref_indices, maps)
+        pending = []
+        for i in ref_indices:
+            with span("depth.scatter"):
+                pending.append(maps.start(depths.pop(i), idxs[i]))
+        for k, queued in enumerate(pending):
+            yield self._wait_map(maps, queued,
+                                 overlapped=k + 1 < len(pending))
+
+    def _sweeps(self, scene, ref_indices, maps):
+        """The plane sweep, the BP sweeps and the depth sweep of the views
+        ``ref_indices``: ({view: depths (rows,) float32 on the device},
+        {view: its ray indices as ``maps.rays`` gave them}), every sweep
+        queued and none waited for. The message store, its spill files
+        included, is gone when this returns or raises."""
+        H, W = scene.image_shape
         gp = self._generation_params
         gamma = gp.gamma_mrf if gp.gamma_mrf is not None else 0.05
         prior = float(log_prior(gamma))
@@ -445,54 +459,58 @@ class RayNetForwardPass(ForwardPass):
         D = int(gp.depth_planes)
         dev = self.device
         bbox = self._bbox(scene)
-        maps = _DepthMaps(dev, H, W, self._every_ray(H, W))
-        ref_indices = list(range(start, end, skip))
         ray_idxs = {}
         for i in ref_indices:
             with span("rays.index"):
                 ray_idxs[i] = self.get_valid_rays_per_image(scene, i)
-        n_valid = {i: len(r) for i, r in ray_idxs.items()}
         group = self.ray_group = self._ray_group()
-        # this process's rays of each image: all of them, or its span
-        mine = {i: group.span(n) if group else (0, n)
-                for i, n in n_valid.items()}
+        # the image sweeps of this call, looked up on their modules now
+        if group is None:
+            update, depth = fused.raynet_image_update, fused.raynet_image_depth
+        else:
+            update = functools.partial(sharding.sharded_image_update, group)
+            depth = functools.partial(sharding.sharded_image_depth, group)
+        # this process's rays of each image: all of them, or its span; a
+        # ray group's depth sweep takes the image's ray count first
+        mine = {i: group.span(len(r)) if group else (0, len(r))
+                for i, r in ray_idxs.items()}
+        lead = {i: (len(r),) if group else () for i, r in ray_idxs.items()}
         rows = {i: hi - lo for i, (lo, hi) in mine.items()}
         # per ray: the scores, the two segment endpoints and the march's
-        # count and total stay on the device; the messages too while
-        # everything fits
-        fixed = sum(n * (D + 8) * 4 for n in rows.values())
-        on_device = fixed + sum(rows.values()) * M * 4 \
-            <= self.messages_device_budget
-        if fixed > self.messages_device_budget:
-            raise RuntimeError(
-                "the scores, segments and march sums of %d views need %.2f "
-                "GB of device memory, over messages_device_budget = %.2f GB; "
-                "run fewer views per call" % (len(ref_indices), fixed / 1e9,
-                                    self.messages_device_budget / 1e9)
-            )
-        common = dict(height=H, width=W, padding=gp.padding, depth_planes=D,
-                      rays_batch=self.rays_batch)
+        # count and total stay on the device beside the messages
+        open_store = message_store.choose_store(
+            rows, M, (D + 8) * 4, self.messages_device_budget,
+            self.messages_dtype, self.messages_f16_threshold,
+            self.messages_memmap_threshold, dev, self.timer)
         bp = dict(grid_shape=grid_shape, max_voxels=M,
                   rays_batch=self.rays_batch)
 
+        def prior_grid():
+            return torch.full((grid_size,), prior, dtype=torch.float32,
+                              device=dev)
+
         for i in ref_indices:
             self._features_and_cameras(scene, i)
-        idxs, segments, scores, centers, ray_sums = {}, {}, {}, {}, {}
+        idxs, scores, rays, ray_sums = {}, {}, {}, {}
         with self.timer.phase("Plane sweep"):
             for i in ref_indices:
-                features, P, P_pinv, centers[i] = self._features_and_cameras(
+                features, P, P_pinv, center = self._features_and_cameras(
                     scene, i
                 )
                 with span("rays.upload"):
                     idxs[i] = maps.rays(ray_idxs[i])
                 with span("rays.segments"):
-                    segments[i] = segments_in_bbox(
-                        idxs[i][slice(*mine[i])], P_pinv, centers[i], bbox, H
+                    segments = segments_in_bbox(
+                        idxs[i][slice(*mine[i])], P_pinv, center, bbox, H
                     )
                 with span("scores"):
                     scores[i] = fused.raynet_image_scores(
-                        *segments[i], features, P, **common,
-                    )
+                        *segments, features, P, height=H, width=W,
+                        padding=gp.padding, depth_planes=D,
+                        rays_batch=self.rays_batch)
+                # the rays' segments, camera centre and bbox, as the
+                # sweeps take them after the scores and grids
+                rays[i] = (*segments, center, bbox)
                 if self.bp_iterations:
                     # each ray's march count and mapped-score total: the
                     # first sweep writes them, the later sweeps read them
@@ -501,115 +519,42 @@ class RayNetForwardPass(ForwardPass):
                         torch.zeros(rows[i], dtype=torch.float32, device=dev),
                     )
 
-        def update(block, i, scatter_total, grid_acc, iteration):
-            args = (block, scores[i], scatter_total, grid_acc, *segments[i],
-                    centers[i], bbox)
-            kw = dict(bp, first_iteration=(iteration == 0), prior=prior,
-                      ray_sums=ray_sums[i])
-            with span("sweep.first" if iteration == 0 else "sweep.message"):
-                if group is None:
-                    fused.raynet_image_update(*args, **kw)
-                else:
-                    sharding.sharded_image_update(group, *args, **kw)
-
-        def depth(block, i, grid_acc):
-            args = (block, scores[i], grid_acc, *segments[i], centers[i],
-                    bbox)
-            # without a message sweep no sweep wrote the sums: it counts
-            kw = dict(bp, ray_sums=ray_sums.get(i))
-            with span("sweep.depth"):
-                if group is None:
-                    return fused.raynet_image_depth(*args, **kw)
-                return sharding.sharded_image_depth(group, n_valid[i], *args,
-                                                    **kw)
-
-        def depth_map(i, depth):
-            with span("depth.scatter"):
-                return maps.start(depth, idxs[i])
-
-        if on_device:
-            depths = self._device_sweeps(
-                rows, M, grid_size, prior, update, depth)
-        else:
-            depths = self._host_store_sweeps(
-                rows, M, grid_size, prior, update, depth)
-        pending = [depth_map(i, depths.pop(i)) for i in ref_indices]
-        for k, queued in enumerate(pending):
-            yield self._wait_map(maps, queued,
-                                 overlapped=k + 1 < len(pending))
-
-    def _device_sweeps(self, rows, M, grid_size, prior, update, depth):
-        """The BP and depth sweeps with the messages on the device; returns
-        {image: depths (rows,) float32 on the device}, every sweep queued
-        and none waited for."""
-        dev = self.device
-        self.message_store = "device"
-        # DDA order; a ray's count is the same in every sweep, so the
-        # entries past it stay zero
-        with span("messages.alloc"):
-            messages = {
-                i: torch.zeros((n, M), dtype=torch.float32, device=dev)
-                for i, n in rows.items()
-            }
-            grid_acc = torch.full((grid_size,), prior, dtype=torch.float32,
-                                  device=dev)
-        with self.timer.phase("Message passing"):
-            for iteration in range(self.bp_iterations):
-                with span("messages.alloc"):
-                    scatter_total = torch.full(
-                        (grid_size,), prior, dtype=torch.float32, device=dev
-                    )
-                for i, block in messages.items():
-                    update(block, i, scatter_total, grid_acc, iteration)
-                grid_acc = scatter_total
-        with self.timer.phase("Per-pixel depth estimation"):
-            return {i: depth(block, i, grid_acc)
-                    for i, block in messages.items()}
-
-    def _host_store_sweeps(self, rows, M, grid_size, prior, update, depth):
-        """The BP and depth sweeps with the messages in the host store;
-        returns {image: depths (rows,) float32 on the device}. The store,
-        its spill files included, is gone when this returns or raises."""
-        dev = self.device
-        order = list(rows)
-        dtype = message_store.host_messages_dtype(
-            self.messages_dtype, sum(rows.values()) * M,
-            self.messages_f16_threshold)
-        store = None
-        try:
-            with self.timer.phase("Message store set-up"):
-                store = message_store.HostMessageStore(
-                    rows, M, dtype, self.messages_memmap_threshold, dev)
+        with open_store() as store:
             self.message_store = store.kind
-            with span("messages.alloc"):
-                grid_acc = torch.full((grid_size,), prior,
-                                      dtype=torch.float32, device=dev)
-            # the first sweep writes the messages, a message sweep reads and
-            # writes them, the depth sweep only reads them; the phase's end
-            # follows the store's copy streams: the current stream waits
-            # for each upload, and the host for each download
-            with self.timer.phase("Message passing"):
-                for iteration in range(self.bp_iterations):
-                    with span("messages.alloc"):
-                        scatter_total = torch.full(
-                            (grid_size,), prior, dtype=torch.float32,
-                            device=dev
-                        )
-                    for i, block in store.blocks(order, upload=iteration > 0,
-                                                 download=True):
-                        update(block, i, scatter_total, grid_acc, iteration)
-                    grid_acc = scatter_total
-            with self.timer.phase("Per-pixel depth estimation"):
-                return {i: depth(block, i, grid_acc)
-                        for i, block in store.blocks(order, upload=True,
-                                                     download=False)}
-        finally:
-            if store is not None:
+            try:
+                with span("messages.alloc"):
+                    grid_acc = prior_grid()
+                # the first sweep writes the messages, a message sweep
+                # reads and writes them, the depth sweep only reads them; a
+                # phase's end follows a host store's copies: the current
+                # stream waits for each upload, the host for each download
+                with self.timer.phase("Message passing"):
+                    for iteration in range(self.bp_iterations):
+                        first = iteration == 0
+                        with span("messages.alloc"):
+                            scatter_total = prior_grid()
+                        for i, block in store.blocks(
+                                ref_indices, upload=not first, download=True):
+                            with span("sweep.first" if first
+                                      else "sweep.message"):
+                                update(block, scores[i], scatter_total,
+                                       grid_acc, *rays[i], **bp,
+                                       first_iteration=first, prior=prior,
+                                       ray_sums=ray_sums[i])
+                        grid_acc = scatter_total
+                depths = {}
+                with self.timer.phase("Per-pixel depth estimation"):
+                    for i, block in store.blocks(ref_indices, upload=True,
+                                                 download=False):
+                        # without a message sweep no sweep wrote the sums:
+                        # it counts
+                        with span("sweep.depth"):
+                            depths[i] = depth(*lead[i], block, scores[i],
+                                              grid_acc, *rays[i], **bp,
+                                              ray_sums=ray_sums.get(i))
+            finally:
                 self.staged_bytes += store.staged_bytes
-                t0 = time.perf_counter()
-                store.close()
-                self.timer.add("Message store release",
-                               time.perf_counter() - t0)
+        return depths, idxs
 
 
 class HartmannForwardPass(ForwardPass):

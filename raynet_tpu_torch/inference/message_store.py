@@ -1,17 +1,20 @@
-"""The raynet pass's host message store.
+"""The raynet pass's message stores.
 
-Port of the JAX package's host store of BP messages
-(``raynet_tpu/inference/forward_pass.py:666-680`` and ``:930-990``): when
-the per-image (rays, M) messages of all reference views do not fit the
-device budget, they live in host memory, one array per image,
+Port of the JAX package's stores of BP messages
+(``raynet_tpu/inference/forward_pass.py:666-680`` and ``:930-990``),
+chosen by ``choose_store``: the per-image (rays, M) messages of all
+reference views stay on the device (``DeviceMessageStore``) while they fit
+the device budget; over it they live in host memory (``HostMessageStore``),
+one array per image,
 
 - float32 while the whole store is at most ``messages_f16_threshold``
   bytes in float32, float16 above it (or the caller's ``messages_dtype``);
 - an ``np.memmap`` spill file per image above ``messages_memmap_threshold``
   entries, in a temporary directory that ``close`` removes.
 
-``HostMessageStore.blocks`` stages them through the device one image at a
-time, as (rays, M) float32 blocks that K2 updates in place. On a CUDA
+Both stores' ``blocks`` yield each image's messages as a (rays, M) float32
+block on the device that K2 updates in place. ``HostMessageStore.blocks``
+stages them through the device one image at a time. On a CUDA
 device each image's block goes host -> pinned buffer -> card and back on
 two copy streams (one each way), ordered by CUDA events, with two slots so
 that the next image's upload runs while the current image sweeps. A
@@ -21,12 +24,59 @@ to nearest even, as ``np.float16`` does). A memmap block is copied into
 the pinned buffer; its pages are never pinned themselves. On the CPU the
 blocks are plain copies in and out of one float32 work tensor.
 """
+import contextlib
+import functools
 import os
 import shutil
 import tempfile
+import time
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
+
+
+def choose_store(rows, max_voxels, ray_bytes, budget, dtype, f16_threshold,
+                 memmap_threshold, device, timer):
+    """A function that opens the message store of the images ``rows``
+    ({image: number of rays}) as a context that closes it: on the device
+    while the messages fit ``budget`` beside the ``ray_bytes`` a ray keeps
+    there, else on the host (``timer`` times its set-up and release).
+    Raises RuntimeError when those bytes alone are over ``budget``."""
+    n_rays = sum(rows.values())
+    fixed = n_rays * ray_bytes
+    if fixed > budget:
+        raise RuntimeError(
+            "the scores, segments and march sums of %d views need %.2f "
+            "GB of device memory, over messages_device_budget = %.2f GB; "
+            "run fewer views per call" % (len(rows), fixed / 1e9,
+                                          budget / 1e9)
+        )
+    if fixed + n_rays * max_voxels * 4 <= budget:
+        return functools.partial(_device_store, rows, max_voxels, device)
+    dtype = host_messages_dtype(dtype, n_rays * max_voxels, f16_threshold)
+    return functools.partial(_host_store, timer, rows, max_voxels, dtype,
+                             memmap_threshold, device)
+
+
+def _device_store(rows, max_voxels, device):
+    with span("messages.alloc"):
+        return contextlib.closing(
+            DeviceMessageStore(rows, max_voxels, device))
+
+
+@contextlib.contextmanager
+def _host_store(timer, *args):
+    with timer.phase("Message store set-up"):
+        store = HostMessageStore(*args)
+    try:
+        yield store
+    finally:
+        t0 = time.perf_counter()
+        store.close()
+        timer.add("Message store release", time.perf_counter() - t0)
+
 
 def host_messages_dtype(messages_dtype, total_entries, f16_threshold):
     """The store's numpy dtype: ``messages_dtype`` when given, else float32
@@ -37,6 +87,26 @@ def host_messages_dtype(messages_dtype, total_entries, f16_threshold):
     if total_entries * 4 > f16_threshold:
         return np.dtype(np.float16)
     return np.dtype(np.float32)
+
+
+class DeviceMessageStore:
+    """Per-image (rows, M) float32 messages on ``device``, zeros at first;
+    ``blocks`` yields them, whatever ``upload`` and ``download`` say."""
+
+    kind = "device"
+    staged_bytes = 0
+
+    def __init__(self, rows, max_voxels, device):
+        self._blocks = {i: torch.zeros((n, int(max_voxels)),
+                                       dtype=torch.float32, device=device)
+                        for i, n in rows.items()}
+
+    def blocks(self, order, upload, download):
+        for i in order:
+            yield i, self._blocks[i]
+
+    def close(self):
+        self._blocks = {}
 
 
 class HostMessageStore:

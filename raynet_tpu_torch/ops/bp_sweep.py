@@ -184,19 +184,16 @@ def _bp_sweep_cuda(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = cuda_build.library()
-    with torch.cuda.device(device):
-        err = lib.raynet_bp_sweep(
-            ray_start.data_ptr(), ray_end.data_ptr(), S_planes.data_ptr(),
-            ptr(messages_in) if mode != "first" else None,
-            ptr(grid_acc) if mode != "first" else None,
-            ptr(grid_out) if mode != "depth" else None,
-            camera_center.data_ptr(), bbox.data_ptr(),
-            ptr(msgs), counts.data_ptr(), ptr(totals), ptr(depth),
-            n, M, depth_planes, gx, gy, gz, float(prior), MODES[mode],
-            cuda_build.stream_ptr(device),
-        )
-    cuda_build.check(err, "raynet_bp_sweep")
+    cuda_build.launch(
+        "raynet_bp_sweep", ray_start,
+        ray_start.data_ptr(), ray_end.data_ptr(), S_planes.data_ptr(),
+        ptr(messages_in) if mode != "first" else None,
+        ptr(grid_acc) if mode != "first" else None,
+        ptr(grid_out) if mode != "depth" else None,
+        camera_center.data_ptr(), bbox.data_ptr(),
+        ptr(msgs), counts.data_ptr(), ptr(totals), ptr(depth),
+        n, M, depth_planes, gx, gy, gz, float(prior), MODES[mode],
+    )
     bp_sweep.launches += 1
     if totals is not None and mode != "first":
         bp_sweep.sums_read += 1
@@ -240,11 +237,9 @@ def bp_sweep(
     args = (ray_start, ray_end, S_planes, messages_in, grid_acc, grid_out,
             camera_center, bbox, grid_shape, max_voxels, prior, mode,
             messages_out, ray_sums)
-    if ray_start.device.type == "cuda":
+    if cuda_build.on_cuda("bp_sweep", ray_start):
         return _bp_sweep_cuda(*args)
-    if ray_start.device.type == "cpu":
-        return bp_sweep_reference(*args)
-    raise ValueError("bp_sweep: unsupported device %s" % ray_start.device)
+    return bp_sweep_reference(*args)
 
 
 # Kernel launches since the last reset (the plain path never counts), and

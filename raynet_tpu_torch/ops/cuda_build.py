@@ -7,6 +7,10 @@ import: the first kernel launch builds the library into
 edited source rebuilds) and prints how long the build took. Each ``.cu``
 file is compiled by its own ``nvcc``, all started together, and the objects
 are then linked. A failed build raises; there is no fallback.
+
+Every op wrapper takes the same two steps: ``on_cuda`` sends a CUDA tensor
+to the kernel and a CPU tensor to the plain version, and ``launch`` calls
+the kernel's entry on the tensor's device and current stream.
 """
 import contextlib
 import ctypes
@@ -188,15 +192,33 @@ def check(err, name):
         raise RuntimeError("%s: CUDA error %d at launch" % (name, err))
 
 
-def stream_ptr(device):
-    """The current CUDA stream of ``device`` as an integer handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+def on_cuda(op, t):
+    """Whether op ``op`` runs its kernel on tensor ``t``: True on a CUDA
+    device, False on the CPU (its plain version); ValueError on any other
+    device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError("%s: unsupported device %s" % (op, t.device))
+
+
+def launch(name, t, *args, lib=None):
+    """Launch the kernel library's entry ``name`` (``lib``, by default
+    ``library()``) with ``args`` on the device of CUDA tensor ``t``: under
+    ``device_guard``, on that device's current stream, whose handle goes
+    last; raise through ``check``."""
+    index = t.get_device()
+    fn = getattr(library() if lib is None else lib, name)
+    with device_guard(index):
+        err = fn(*args, raw_stream(index))
+    check(err, name)
 
 
 def raw_stream(index):
     """The current CUDA stream of device ``index`` as an integer handle,
-    as ``stream_ptr`` gives it, without building a ``torch.cuda.Stream``
-    (the call Triton's launcher makes)."""
+    without building a ``torch.cuda.Stream`` (the call Triton's launcher
+    makes)."""
     return torch._C._cuda_getCurrentRawStream(index)
 
 

@@ -80,17 +80,13 @@ def _plane_sweep_cuda(features, P, ray_start, ray_end, padding, height,
     cells = None
     if return_cells:
         cells = torch.empty((n, D, V, 2), dtype=torch.int32, device=device)
-    lib = cuda_build.library()
-    index = features.get_device()
-    with cuda_build.device_guard(index):
-        err = lib.raynet_plane_sweep_scores(
-            features.data_ptr(), is_bf16, P.data_ptr(),
-            ray_start.data_ptr(), ray_end.data_ptr(), scores.data_ptr(),
-            None if cells is None else cells.data_ptr(),
-            V, Hf, Wf, F, n, D, int(padding), int(height), int(width),
-            cuda_build.raw_stream(index),
-        )
-    cuda_build.check(err, "raynet_plane_sweep_scores")
+    cuda_build.launch(
+        "raynet_plane_sweep_scores", features,
+        features.data_ptr(), is_bf16, P.data_ptr(),
+        ray_start.data_ptr(), ray_end.data_ptr(), scores.data_ptr(),
+        None if cells is None else cells.data_ptr(),
+        V, Hf, Wf, F, n, D, int(padding), int(height), int(width),
+    )
     plane_sweep_scores.launches += 1
     return (scores, cells) if return_cells else scores
 
@@ -114,15 +110,12 @@ def plane_sweep_scores(
     """
     args = (features, P, ray_start, ray_end, padding, height, width,
             depth_planes)
-    if features.device.type == "cuda":
+    if cuda_build.on_cuda("plane_sweep_scores", features):
         return _plane_sweep_cuda(*args, return_cells)
-    if features.device.type == "cpu":
-        S = plane_sweep_scores_reference(*args)
-        if return_cells:
-            return S, plane_sweep_cells_reference(*args[1:])
-        return S
-    raise ValueError("plane_sweep_scores: unsupported device %s"
-                     % features.device)
+    S = plane_sweep_scores_reference(*args)
+    if return_cells:
+        return S, plane_sweep_cells_reference(*args[1:])
+    return S
 
 
 # Kernel launches since the last reset (the plain path never counts).

@@ -151,14 +151,11 @@ def _voxel_traversal_cuda(bbox, ray_start, ray_end, grid_shape, max_voxels):
     device = ray_start.device
     idx = torch.empty((n, M), dtype=torch.int32, device=device)
     counts = torch.empty(n, dtype=torch.int32, device=device)
-    lib = cuda_build.library()
-    with torch.cuda.device(device):
-        err = lib.raynet_voxel_traversal(
-            bbox.data_ptr(), ray_start.data_ptr(), ray_end.data_ptr(),
-            idx.data_ptr(), counts.data_ptr(), n, M, gx, gy, gz,
-            cuda_build.stream_ptr(device),
-        )
-    cuda_build.check(err, "raynet_voxel_traversal")
+    cuda_build.launch(
+        "raynet_voxel_traversal", ray_start,
+        bbox.data_ptr(), ray_start.data_ptr(), ray_end.data_ptr(),
+        idx.data_ptr(), counts.data_ptr(), n, M, gx, gy, gz,
+    )
     voxel_traversal_flat.launches += 1
     return idx, counts
 
@@ -187,12 +184,9 @@ def voxel_traversal_flat(bbox, ray_start, ray_end, grid_shape, max_voxels):
     """
     check_grid("voxel_traversal_flat", grid_shape, max_voxels)
     args = (bbox, ray_start, ray_end, grid_shape, max_voxels)
-    if ray_start.device.type == "cuda":
+    if cuda_build.on_cuda("voxel_traversal_flat", ray_start):
         return _voxel_traversal_cuda(*args)
-    if ray_start.device.type == "cpu":
-        return voxel_traversal_flat_reference(*args)
-    raise ValueError("voxel_traversal_flat: unsupported device %s"
-                     % ray_start.device)
+    return voxel_traversal_flat_reference(*args)
 
 
 # Kernel launches since the last reset (the plain path never counts).

@@ -95,15 +95,12 @@ def _voxel_argmax_depth_cuda(bbox, ray_start, ray_end, S_planes,
     device = ray_start.device
     depth = torch.empty(n, dtype=f32, device=device)
     counts = torch.empty(n, dtype=torch.int32, device=device)
-    lib = cuda_build.library()
-    with torch.cuda.device(device):
-        err = lib.raynet_voxel_argmax_depth(
-            bbox.data_ptr(), ray_start.data_ptr(), ray_end.data_ptr(),
-            S_planes.data_ptr(), camera_center.data_ptr(), depth.data_ptr(),
-            counts.data_ptr(), n, int(max_voxels), depth_planes, gx, gy, gz,
-            cuda_build.stream_ptr(device),
-        )
-    cuda_build.check(err, "raynet_voxel_argmax_depth")
+    cuda_build.launch(
+        "raynet_voxel_argmax_depth", ray_start,
+        bbox.data_ptr(), ray_start.data_ptr(), ray_end.data_ptr(),
+        S_planes.data_ptr(), camera_center.data_ptr(), depth.data_ptr(),
+        counts.data_ptr(), n, int(max_voxels), depth_planes, gx, gy, gz,
+    )
     voxel_argmax_depth.launches += 1
     return depth, counts
 
@@ -130,12 +127,9 @@ def voxel_argmax_depth(bbox, ray_start, ray_end, S_planes, camera_center,
     check_grid("voxel_argmax_depth", grid_shape, max_voxels)
     args = (bbox, ray_start, ray_end, S_planes, camera_center, grid_shape,
             max_voxels)
-    if ray_start.device.type == "cuda":
+    if cuda_build.on_cuda("voxel_argmax_depth", ray_start):
         return _voxel_argmax_depth_cuda(*args)
-    if ray_start.device.type == "cpu":
-        return voxel_argmax_depth_reference(*args)
-    raise ValueError("voxel_argmax_depth: unsupported device %s"
-                     % ray_start.device)
+    return voxel_argmax_depth_reference(*args)
 
 
 # Kernel launches since the last reset (the plain path never counts).

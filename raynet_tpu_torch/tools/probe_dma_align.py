@@ -96,18 +96,12 @@ def tma_box_rows(src, y0, xg0, sub0):
     """
     y0, xg0, sub0 = int(y0), int(xg0), int(sub0)
     wg, hf = _check_box_args(src, y0, xg0, sub0)
-    if not src.is_cuda:
-        if src.device.type == "cpu":
-            return tma_box_rows_reference(src, y0, xg0, sub0)
-        raise ValueError("tma_box_rows: unsupported device %s" % src.device)
+    if not cuda_build.on_cuda("tma_box_rows", src):
+        return tma_box_rows_reference(src, y0, xg0, sub0)
     out = src.new_empty((NSUB * BH, WIDTH), dtype=torch.float32)
-    index = src.get_device()
-    lib = cuda_build.library()
-    with cuda_build.device_guard(index):
-        err = lib.raynet_probe_tma_box(
-            src.data_ptr(), out.data_ptr(), wg, hf, y0, xg0, sub0, index,
-            cuda_build.raw_stream(index))
-    cuda_build.check(err, "raynet_probe_tma_box")
+    cuda_build.launch("raynet_probe_tma_box", src, src.data_ptr(),
+                      out.data_ptr(), wg, hf, y0, xg0, sub0,
+                      src.get_device())
     tma_box_rows.launches += 1
     return out
 
@@ -190,18 +184,11 @@ def tensor_core_dot(x, e, mode):
         raise ValueError("tensor_core_dot: mode must be 'raw' or 'rna', "
                          "got %r" % (mode,))
     m, n, k = _check_dot_args(x, e)
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return tensor_core_dot_reference(x, e, MODES[mode])
-        raise ValueError("tensor_core_dot: unsupported device %s" % x.device)
+    if not cuda_build.on_cuda("tensor_core_dot", x):
+        return tensor_core_dot_reference(x, e, MODES[mode])
     out = x.new_empty((m, n))
-    index = x.get_device()
-    lib = cuda_build.library()
-    with cuda_build.device_guard(index):
-        err = lib.raynet_probe_tf32_dot(
-            x.data_ptr(), e.data_ptr(), out.data_ptr(), m, n, k, rna,
-            cuda_build.raw_stream(index))
-    cuda_build.check(err, "raynet_probe_tf32_dot")
+    cuda_build.launch("raynet_probe_tf32_dot", x, x.data_ptr(), e.data_ptr(),
+                      out.data_ptr(), m, n, k, rna)
     tensor_core_dot.launches += 1
     return out
 
@@ -270,11 +257,9 @@ def dot_equal_to_build(csrc, device):
         for mode, rna in _RNA.items():
             mine = tensor_core_dot(x, e, mode)
             theirs = torch.empty_like(mine)
-            with cuda_build.device_guard(x.get_device()):
-                err = other.raynet_probe_tf32_dot(
-                    x.data_ptr(), e.data_ptr(), theirs.data_ptr(), m, n, k,
-                    rna, cuda_build.raw_stream(x.get_device()))
-            cuda_build.check(err, "raynet_probe_tf32_dot (%s)" % csrc)
+            cuda_build.launch("raynet_probe_tf32_dot", x, x.data_ptr(),
+                              e.data_ptr(), theirs.data_ptr(), m, n, k, rna,
+                              lib=other)
             equal["%s %dx%dx%d" % (mode, m, k, n)] = bool(
                 torch.equal(mine, theirs))
     return equal

@@ -226,33 +226,51 @@ def test_store_choice_by_size(setup):
         assert fp.message_store == expect
 
 
-def test_store_blocks_round_trip(tmp_path, monkeypatch):
-    """HostMessageStore alone: zero blocks on a first sweep, what was
-    written comes back (rounded to float16 in a float16 store), memmap
-    files per image over the threshold and none under it."""
+# kind: (dtype, memmap threshold) of a host store; None: the device store
+ROUND_TRIPS = {
+    "device": None,
+    "host_f32": (np.float32, 10 ** 6),
+    "host_f16": (np.float16, 10 ** 6),
+    "memmap": (np.float16, 20),
+}
+
+
+@pytest.mark.parametrize("kind", list(ROUND_TRIPS))
+def test_store_blocks_round_trip(tmp_path, monkeypatch, kind):
+    """Either store alone: ``blocks`` yields every image once, in the order
+    given, as a (rows, M) float32 block, zero on a first sweep; what was
+    written comes back (rounded to float16 in a float16 store); memmap
+    files per image over the threshold and none under it; ``close``, twice,
+    leaves no spill directory."""
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     rows = {3: 5, 7: 9}
     rng = np.random.RandomState(0)
-    for dtype, threshold, kind in ((np.float32, 10 ** 6, "host_f32"),
-                                   (np.float16, 10 ** 6, "host_f16"),
-                                   (np.float16, 20, "memmap")):
+    if ROUND_TRIPS[kind] is None:
+        dtype, itemsize = np.float32, 0  # nothing is staged
+        store = message_store.DeviceMessageStore(rows, 6, "cpu")
+    else:
+        dtype, threshold = ROUND_TRIPS[kind]
+        itemsize = np.dtype(dtype).itemsize
         store = message_store.HostMessageStore(rows, 6, dtype, threshold,
                                                "cpu")
-        assert store.kind == kind
-        if kind == "memmap":
-            files = os.listdir(store.spill_dir)
-            assert sorted(files) == ["messages_pon_3.dat",
-                                     "messages_pon_7.dat"]
-        written = {}
-        for i, block in store.blocks([7, 3], upload=False, download=True):
-            assert block.dtype == torch.float32 and block.shape == (rows[i], 6)
-            assert not block.any()
-            written[i] = rng.randn(rows[i], 6).astype(np.float32)
-            block.copy_(torch.from_numpy(written[i]))
-        for i, block in store.blocks([3, 7], upload=True, download=False):
-            np.testing.assert_array_equal(
-                block.numpy(), written[i].astype(dtype).astype(np.float32))
-        assert store.staged_bytes == 2 * 14 * 6 * np.dtype(dtype).itemsize
-        store.close()
-        store.close()
-        assert os.listdir(str(tmp_path)) == []
+    assert store.kind == kind
+    if kind == "memmap":
+        files = os.listdir(store.spill_dir)
+        assert sorted(files) == ["messages_pon_3.dat", "messages_pon_7.dat"]
+    written = {}
+    for i, block in store.blocks([7, 3], upload=False, download=True):
+        assert block.dtype == torch.float32 and block.shape == (rows[i], 6)
+        assert not block.any()
+        written[i] = rng.randn(rows[i], 6).astype(np.float32)
+        block.copy_(torch.from_numpy(written[i]))
+    assert list(written) == [7, 3]
+    read = []
+    for i, block in store.blocks([3, 7], upload=True, download=False):
+        read.append(i)
+        np.testing.assert_array_equal(
+            block.numpy(), written[i].astype(dtype).astype(np.float32))
+    assert read == [3, 7]
+    assert store.staged_bytes == 2 * 14 * 6 * itemsize
+    store.close()
+    store.close()
+    assert os.listdir(str(tmp_path)) == []

@@ -116,9 +116,6 @@ def test_wrapper_guards():
         trm.voxel_traversal_flat(bbox, rs, rs + 1, (2048, 1024, 1024), 8)
     with pytest.raises(ValueError, match="positive"):
         trm.voxel_traversal_flat(bbox, rs, rs + 1, (4, 4, 4), 0)
-    with pytest.raises(ValueError, match="unsupported device"):
-        trm.voxel_traversal_flat(bbox, rs.to("meta"), rs.to("meta"),
-                                 (4, 4, 4), 8)
     # a 128x128x64 grid (the paper's) fits
     idx, counts = trm.voxel_traversal_flat(bbox, rs + 0.5, rs + 0.6,
                                            (128, 128, 64), 8)

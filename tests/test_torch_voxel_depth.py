@@ -170,9 +170,6 @@ def test_voxel_argmax_depth_wrapper_guards():
         vd.voxel_argmax_depth(bbox, rs, rs + 1, S, c, (2048, 1024, 1024), 8)
     with pytest.raises(ValueError, match="positive"):
         vd.voxel_argmax_depth(bbox, rs, rs + 1, S, c, (4, 4, 4), 0)
-    meta = [t.to("meta") for t in (bbox, rs, rs, S, c)]
-    with pytest.raises(ValueError, match="unsupported device"):
-        vd.voxel_argmax_depth(*meta, (4, 4, 4), 8)
 
 
 @pytest.fixture(scope="module")
