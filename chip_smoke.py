@@ -2584,6 +2584,8 @@ def main(argv=None):
     total_launches = dict.fromkeys(counters, 0)
     results = {}
     n_rays = 2 * H * W
+    # the extractor's folded BatchNorm is built once for all the passes
+    fold_builds = model.fold_builds
     for name, cls, used in passes:
         expect = {k: used.get(k, 0) for k in counters}
         log("== 6. %s forward pass, %dx%d, 2 reference views of 6 images"
@@ -2605,9 +2607,11 @@ def main(argv=None):
         for c in counters.values():
             c.launches = 0
         bp_sweep.sums_read = 0
+        folded = model.folded_layers
         t0 = time.perf_counter()
         maps = list(fp.forward_pass(scene, (0, 2, 1)))
         wall = time.perf_counter() - t0
+        folded = model.folded_layers - folded
         launches = {k: c.launches for k, c in counters.items()}
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         for k, v in launches.items():
@@ -2628,6 +2632,12 @@ def main(argv=None):
         check(bp_sweep.sums_read == sums_expect,
               "%s: K2 launches reading stored ray sums %d of %d"
               % (name, bp_sweep.sums_read, launches["bp_sweep"]))
+        # every conv of every image featurised runs with its BatchNorm folded
+        images = fp.timer.counts["Features computation"]
+        convs = len(model.model.convs)
+        check(folded == convs * images,
+              "%s: folded conv layers %d, %d for each of %d images"
+              % (name, folded, convs, images))
         allmaps = np.stack(maps)
         nz = allmaps[allmaps > 0]
         check(allmaps.shape == (2, H, W), "depth maps %s" % (allmaps.shape,))
@@ -2683,6 +2693,10 @@ def main(argv=None):
         if name == "multi_view_cnn_voxel_space":
             voxel_small = maps_k
         del fp_k, fp_p, maps_k, maps_p
+
+    check(model.fold_builds == fold_builds,
+          "phase 6: BatchNorm fold built %d times before the passes, %d after"
+          % (fold_builds, model.fold_builds))
 
     # 7. the CLI on a scene on disk
     log("== 7. CLI, multi_view_cnn_voxel_space on the 400x300 rig on disk")

@@ -125,6 +125,56 @@ class ConvBNStack(nn.Module):
                 x = act(x)
         return x
 
+    def forward_folded(self, x, params):
+        """The stack from ``fold_batch_norm(self)``'s (weight, bias) pairs:
+        each conv with its norm folded in, then the activation (none after
+        the last); no norm runs."""
+        act = torch.relu if self.activation == "relu" else torch.tanh
+        n = len(params)
+        for i, (conv, (weight, bias)) in enumerate(zip(self.convs, params)):
+            x = F.conv2d(x, weight, bias, conv.stride, conv.padding,
+                         conv.dilation, conv.groups)
+            if i < n - 1:
+                x = act(x)
+        return x
+
+
+def folds(module):
+    """Whether ``fold_batch_norm`` takes ``module``: an eval-mode ConvBNStack
+    whose norms are all BatchNorm2d. LayerNormalization, and a norm in
+    training mode, take statistics of each input and do not fold."""
+    return (isinstance(module, ConvBNStack) and not module.training
+            and all(isinstance(n, BatchNorm2d) for n in module.norms))
+
+
+def fold_inputs(stack):
+    """The tensors ``fold_batch_norm`` reads, six a layer: the conv's weight
+    and bias, the norm's weight, bias, running mean and running variance."""
+    return [t for conv, norm in zip(stack.convs, stack.norms)
+            for t in (conv.weight, conv.bias, norm.weight, norm.bias,
+                      norm.running_mean, norm.running_var)]
+
+
+def fold_batch_norm(stack):
+    """One (weight, bias) per layer of a stack that ``folds``, its
+    eval-mode BatchNorm folded into the conv.
+
+    With s = gamma / sqrt(running_var + eps): W' = W s and
+    b' = (b - running_mean) s + beta, computed in float64 and cast to the
+    conv's dtype."""
+    tensors = fold_inputs(stack)
+    params = []
+    with torch.no_grad():
+        for i, norm in enumerate(stack.norms):
+            w, b, gamma, beta, mean, var = (
+                t.double() for t in tensors[6 * i:6 * i + 6])
+            scale = gamma * torch.rsqrt(var + norm.eps)
+            weight = w * scale[:, None, None, None]
+            bias = (b - mean) * scale + beta
+            dtype = tensors[6 * i].dtype
+            params.append((weight.to(dtype), bias.to(dtype)))
+    return params
+
 
 class HartmannCNN(nn.Module):
     """conv5(32)-tanh-maxpool2, conv5(64)-tanh-maxpool2, VALID: the Hartmann

@@ -30,7 +30,9 @@ operands off 16-byte alignment) within
 only the f32 sums differ), its "rna" diagonal exact; the voxel-space and
 raynet passes' depth maps bit for bit the numpy scatter of their depths,
 in page-locked memory, and a call whose features are cached free of
-synchronising operations.
+synchronising operations; a 1600x1200 view's features, BatchNorm folded
+into the convolutions, within rtol = atol = 1e-4 of the CPU's unfolded
+stack on >= 0.999 of the elements, with no BatchNorm kernel.
 """
 import time
 import warnings
@@ -39,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from bench_torch.scene import cnn_weights
 from raynet_tpu_torch.common.ring_scene import RingScene
 from raynet_tpu_torch.inference import (
     MultiViewCNNForwardPass,
@@ -387,6 +390,35 @@ def test_forward_pass_on_the_card_matches_the_cpu(cuda):
     cpu = np.stack(list(fp_cpu.forward_pass(scene, (0, 2, 1))))
     assert np.array_equal(gpu > 0, cpu > 0)
     assert np.mean(np.abs(gpu - cpu) <= 1e-3 * np.abs(cpu)) >= 0.999
+
+
+def test_feature_pass_launches_no_batch_norm_kernel(cuda):
+    """``predict`` of one 1600x1200 view padded by 11 runs its BatchNorm
+    folded into the convolutions: no BatchNorm op or kernel in its trace,
+    and its features within 1e-4 (relative and absolute) of the CPU's
+    unfolded stack on >= 0.999 of the elements."""
+    weights = cnn_weights([(32, 3, 1)] * 5, 3, 11, torch.device("cpu"))
+    fe = FeatureExtractor("simple_cnn", state_dict=weights, device=cuda)
+    image = torch.randint(0, 256, (1222, 1622, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(3))
+    fe.predict(image.to(cuda))  # cuDNN's plans
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = fe.predict(image.to(cuda))
+        torch.cuda.synchronize()
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+    names = [e.key for e in prof.key_averages()]
+    assert [n for n in names if "bn_fw" in n or "batch_norm" in n] == []
+    assert fe.fold_builds == 1 and fe.folded_layers == 2 * 5
+    plain = FeatureExtractor("simple_cnn", state_dict=weights, device="cpu")
+    x = image.permute(2, 0, 1)[None].to(torch.float32) / 255.0
+    with torch.no_grad():
+        want = plain.model(x)[0].permute(1, 2, 0)
+    close = torch.isclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert close.float().mean().item() >= 0.999
 
 
 def _tensor_of(array):
