@@ -195,21 +195,26 @@ order, every phase failing loudly (nonzero exit):
    8/16/32/64, seeded weights) on an 8-image 1600x1200 ring (focal 2750,
    bbox +-6.5), cropped to 1600x1184, every image a reference view with
    its 4 nearest, D = 256: after one untimed pass, the kernel launches set
-   to 0 just before the timed pass and read just after (K4 exactly 8, no
-   other kernel), ``volumes`` 8, wall time, phases, peak memory, the
-   (8, 296, 400) maps finite and view 0's within its planes; then K4 on
-   view 0's card features (5, 296, 400, 32), D = 256, against its plain
-   version on the same card tensors (>= 0.999 of the values within rtol
-   1e-5, atol 1e-6), each timed (median of 7 launches, plain of 3) beside
-   its bound (``bench_torch/mvs_roofline.py``'s count of K4's work).
+   to 0 just before the timed pass and read just after (K4 exactly 8, K5
+   exactly 24, no other kernel), ``volumes`` 8, wall time, phases, peak
+   memory, the (8, 296, 400) maps finite and view 0's within its planes;
+   then K4 on view 0's card features (5, 296, 400, 32), D = 256, against
+   its plain version on the same card tensors (>= 0.999 of the values
+   within rtol 1e-5, atol 1e-6), each timed (median of 7 launches, plain
+   of 3) beside its bound (``bench_torch/mvs_roofline.py``'s count of K4's
+   work); then K5 at the U-Net's c7, c9 and c11 (inputs (64, 32, 37, 50),
+   (32, 64, 74, 100), (16, 128, 148, 200), seeded) against its plain
+   version (within 2**-18 of each output's sum of absolute terms), timed
+   beside its bound (``k5_cost``), its plain version, cuDNN's transposed
+   conv with the ReLU and skip sum, and the 8 sub-pixel forward convs.
    No module of JAX or of the JAX package may have been imported.
 
 The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
 (``time_kernels.kernel_rig``, ``time_kernels.time_all``, ``roofline``).
 The last lines are a JSON summary of the passes, the probes, the trace,
 the host store and the evaluation, the kernels' JSON line (times, bounds,
-launches; K3's rows mode counted in phases 11, 14 and 15, K4 in phase
-17's timed pass), and the card's name and
+launches; K3's rows mode counted in phases 11, 14 and 15, K4 and K5 in
+phase 17's timed pass), and the card's name and
 power limit before the final JSON line ``{"ok": true, "device": ...}``.
 Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
@@ -217,6 +222,7 @@ result.
 """
 import argparse
 import json
+import math
 import os
 import re
 import shutil
@@ -1757,13 +1763,15 @@ def _sharded_pass(group, model, gp, scene):
     from raynet_tpu_torch.ops.cost_volume import cost_volume
     from raynet_tpu_torch.ops.planesweep import plane_sweep_scores
     from raynet_tpu_torch.ops.ray_marching import voxel_traversal_flat
+    from raynet_tpu_torch.ops.transposed_conv3d import transposed_conv3d
     from raynet_tpu_torch.ops.voxel_depth import voxel_argmax_depth
     from raynet_tpu_torch.tools.time_kernels import N_RAYS
 
     counters = {"plane_sweep_scores": plane_sweep_scores,
                 "voxel_traversal_flat": voxel_traversal_flat,
                 "voxel_argmax_depth": voxel_argmax_depth,
-                "bp_sweep": bp_sweep, "cost_volume": cost_volume}
+                "bp_sweep": bp_sweep, "cost_volume": cost_volume,
+                "transposed_conv3d": transposed_conv3d}
     list(RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
                            device=group.device).forward_pass(scene, (0, 2, 1)))
     fp = RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
@@ -2084,10 +2092,15 @@ def phase_mvsnet(check, dev, counters):
     8-image 1600x1200 ring, every image a reference view with its 4
     nearest, D = 256, an ``MVSNetModel`` at its published widths with
     seeded weights: the kernel launches set to 0 just before the timed
-    pass and read just after (K4 once a view, no other kernel), its
-    ``volumes``, wall time, phases and peak memory, the maps' shape and
-    range; then K4 on view 0's card features against its plain version on
-    the same card tensors, each timed, beside its bound."""
+    pass and read just after (K4 once a view, K5 three times, no other
+    kernel), its ``volumes``, wall time, phases and peak memory, the maps'
+    shape and range; then K4 on view 0's card features against its plain
+    version on the same card tensors, each timed, beside its bound; then
+    K5 at each of
+    the U-Net's three upsampling layers (seeded inputs at the pass's
+    shapes) against its plain version, timed beside its bound, the plain
+    version, cuDNN's transposed conv with the ReLU and skip sum (what the
+    pass ran before K5) and the 8 sub-pixel forward convs (a control)."""
     import torch
 
     from raynet_tpu_torch.common.generation_parameters import (
@@ -2134,9 +2147,10 @@ def phase_mvsnet(check, dev, counters):
         "GB; launches %s" % (wall, pixels / wall, pixels, peak_gb, launches))
     for k, v in phases.items():
         log("  phase %-28s %.3f s" % (k, v))
-    expect = {k: MVS_VIEWS * (k == "cost_volume") for k in counters}
-    check(launches == expect, "mvsnet: K4 launched once a view, no other "
-          "kernel: launches %s" % (launches,))
+    per_view = {"cost_volume": 1, "transposed_conv3d": 3}
+    expect = {k: MVS_VIEWS * per_view.get(k, 0) for k in counters}
+    check(launches == expect, "mvsnet: K4 launched once a view, K5 three "
+          "times, no other kernel: launches %s" % (launches,))
     check(fp.volumes == MVS_VIEWS, "mvsnet: %d cost volumes built, one a "
           "view" % fp.volumes)
     P0 = cv.feature_cameras([scene.get_image(0).camera.P], top, left)
@@ -2190,7 +2204,129 @@ def phase_mvsnet(check, dev, counters):
     out["k4"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": None,
                  "max_abs_err": err, "close_share": close}
+    del feats, homs, depths
+    out["k5"] = phase_k5(check, dev, (MVS_PLANES, H, W))
     return out
+
+
+# K5's layers, MVSNet's c7, c9 and c11: (name, Cin, Cout, the input's
+# downscale from the volume's (D, H, W))
+K5_LAYERS = (("c7", 64, 32, 8), ("c9", 32, 16, 4), ("c11", 16, 8, 2))
+
+
+def k5_cost(cin, cout, shape):
+    """The work of K5 on a (cin, *shape) input: 2 x 27 x cin x cout
+    multiply-adds an input voxel; bytes, the input, the weights and bias
+    and the skip read once, the (cout, 2D, 2H, 2W) result written once."""
+    from bench_torch import roofline
+
+    voxels = math.prod(shape)
+    nbytes = 4 * (cin * voxels + cin * cout * 27 + cout
+                  + 2 * cout * 8 * voxels)
+    return roofline.Cost(nbytes, 2 * 27 * cin * cout * voxels)
+
+
+def subpixel_convs(x, w, out):
+    """The control: a stride-2 transposed conv as 8 forward convs, one a
+    parity class (per dim, the even outputs' 1 tap, the odd outputs' 2 on
+    the input padded by one at the far end), each written into its class
+    of ``out`` (1, Cout, 2D, 2H, 2W)."""
+    import torch.nn.functional as F
+
+    # the kernel's taps a class reads, in the forward conv's order
+    taps = ([1], [2, 0])
+    for pd in (0, 1):
+        for ph in (0, 1):
+            for pw in (0, 1):
+                k = w[:, :, taps[pd]][:, :, :, taps[ph]][..., taps[pw]]
+                y = F.conv3d(F.pad(x, (0, pw, 0, ph, 0, pd)),
+                             k.transpose(0, 1))
+                out[:, :, pd::2, ph::2, pw::2] = y
+    return out
+
+
+def phase_k5(check, dev, volume_shape):
+    """K5 alone at each upsampling layer of the U-Net on a (D, H, W)
+    volume: against its plain version (within 2**-18 of each output's sum
+    of absolute terms, as the card test), each timed in place (the skip
+    grows by the layer's output a call; the values stay finite), beside
+    its bound, cuDNN's transposed conv with the ReLU and the skip sum, and
+    the sub-pixel control."""
+    import torch
+    import torch.nn.functional as F
+
+    from bench_torch import roofline
+    from raynet_tpu_torch.ops import transposed_conv3d as tc
+    from raynet_tpu_torch.tools.time_kernels import time_ms
+
+    rows = {}
+    for name, cin, cout, down in K5_LAYERS:
+        shape = tuple(n // down for n in volume_shape)
+        g = torch.Generator().manual_seed(cin)
+        x = torch.relu(torch.randn((1, cin) + shape, generator=g)).to(dev)
+        w = (torch.randn((cin, cout, 3, 3, 3), generator=g)
+             * (2.0 / cin) ** 0.5).to(dev)
+        b = (torch.randn((cout,), generator=g) * 0.1).to(dev)
+        skip = torch.relu(torch.randn(
+            (1, cout) + tuple(2 * n for n in shape), generator=g)).to(dev)
+        scale = tc.transposed_conv3d_reference(x.abs(), w.abs(), b.abs(),
+                                               skip.abs())
+        want = tc.transposed_conv3d_reference(x, w, b, skip.clone())
+        before = tc.transposed_conv3d.launches
+        got = tc.transposed_conv3d(x, w, b, skip)
+        launched = tc.transposed_conv3d.launches - before
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / scale).max())
+        check(launched == 1 and bool(torch.isfinite(got).all())
+              and rel <= 2.0 ** -18,
+              "K5 %s (%d -> %d, input %s) against its plain version on the "
+              "card: max abs err %.3e, %.3e of the terms' sum (bar 2**-18 = "
+              "%.3e), launches %d" % (name, cin, cout, shape, err, rel,
+                                      2.0 ** -18, launched))
+        del scale, want
+        # the subpixel control against the library layer, once
+        ref = F.conv_transpose3d(x, w, None, stride=2, padding=1,
+                                 output_padding=1)
+        sub = subpixel_convs(x, w, torch.empty_like(ref))
+        sub_err = float((sub - ref).abs().max())
+        check(sub_err <= 1e-3 * float(ref.abs().max()),
+              "K5 %s: the sub-pixel control computes the transposed conv "
+              "(max abs err %.3e)" % (name, sub_err))
+        del ref
+
+        def library():
+            y = F.conv_transpose3d(x, w, b, stride=2, padding=1,
+                                   output_padding=1)
+            return torch.relu_(y).add_(skip)
+
+        ms = time_ms(lambda: tc.transposed_conv3d(x, w, b, skip))
+        plain_ms = time_ms(lambda: tc.transposed_conv3d_reference(
+            x, w, b, skip), repeats=3, warmup=1)
+        library_ms = time_ms(library)
+        subpixel_ms = time_ms(lambda: subpixel_convs(x, w, sub))
+        work = k5_cost(cin, cout, shape)
+        bound_ms = 1e3 * roofline.bound_seconds(work)
+        bound_by = roofline.bound_by(work)
+        log("  K5 %s %d -> %d, input %s: %.4f ms a launch, plain %.3f ms, "
+            "cuDNN transposed conv + ReLU + skip %.4f ms, 8 sub-pixel convs "
+            "%.4f ms; bound %.4f ms (%s), %.1f%% of it"
+            % (name, cin, cout, shape, ms, plain_ms, library_ms,
+               subpixel_ms, bound_ms, bound_by, 100 * bound_ms / ms))
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms,
+                      "subpixel_ms": subpixel_ms, "max_abs_err": err,
+                      "max_rel_err": rel, "input": list(shape)}
+        del x, w, b, skip, got, sub
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                       "subpixel_ms")}
+    total.update(bound_by="per layer", max_abs_err=max(
+        r["max_abs_err"] for r in rows.values()), layers=rows)
+    log("  K5 a volume (3 layers): %.4f ms, bound %.4f ms, %.1f%% of it; "
+        "cuDNN %.4f ms" % (total["ms"], total["bound_ms"],
+                           100 * total["bound_ms"] / total["ms"],
+                           total["library_ms"]))
+    return total
 
 
 def main(argv=None):
@@ -2211,7 +2347,11 @@ def main(argv=None):
         RayNetForwardPass,
     )
     from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
-    from raynet_tpu_torch.ops import cost_volume, cuda_build
+    from raynet_tpu_torch.ops import (
+        cost_volume,
+        cuda_build,
+        transposed_conv3d,
+    )
     from raynet_tpu_torch.ops.bp_sweep import (
         bp_sweep,
         bp_sweep_reference,
@@ -2702,7 +2842,8 @@ def main(argv=None):
                 "voxel_traversal_flat": voxel_traversal_flat,
                 "voxel_argmax_depth": voxel_argmax_depth,
                 "bp_sweep": bp_sweep,
-                "cost_volume": cost_volume.cost_volume}
+                "cost_volume": cost_volume.cost_volume,
+                "transposed_conv3d": transposed_conv3d.transposed_conv3d}
     # the launches each pass makes on the 2 reference views: one per image
     # and kernel, K2 once per image and sweep; no other kernel
     passes = (
@@ -3034,7 +3175,7 @@ def main(argv=None):
         {"maps": raynet_maps, "wall_s": results["raynet"]["wall_s"]},
         {k: passes[0][2].get(k, 0) for k in counters}, e2e_batch)
     del raynet_maps, e2e_batch
-    # 17. the mvsnet pass and K4
+    # 17. the mvsnet pass, K4 and K5
     mvsnet = phase_mvsnet(check, dev, counters)
 
     imported = sorted(m for m in sys.modules
@@ -3111,6 +3252,14 @@ def main(argv=None):
                "none: new in the port, no TPU counterpart",
                mvsnet["launches"]["cost_volume"], mvsnet["k4"]["max_abs_err"],
                mvsnet["k4"]),
+        # the three upsampling layers of a volume (phase 17), summed; per
+        # layer under "layers"
+        kernel("transposed_conv3d", "transposed_conv3d.cu",
+               "none: new in the port, no TPU counterpart",
+               mvsnet["launches"]["transposed_conv3d"],
+               mvsnet["k5"]["max_abs_err"], mvsnet["k5"],
+               subpixel_ms=mvsnet["k5"]["subpixel_ms"],
+               layers=mvsnet["k5"]["layers"]),
     ]
     # strict JSON: a NaN here raises
     print(json.dumps({"bp_sweep_modes": k2, "voxel_depth": k3_depth,

@@ -22,8 +22,10 @@ names, so that its state dicts load:
 
 BatchNorm's eps is 1e-5. ``MVSNetModel`` binds the network to its
 parameters for inference and runs every conv with its eval-mode BatchNorm
-folded in (``cnn.fold_conv_norm``), so that no norm kernel runs; the ReLU
-stays its own op. Training, and the network's own ``forward``, keep the
+folded in (``cnn.fold_conv_norm``), so that no norm kernel runs. A forward
+conv's ReLU stays its own op; each transposed conv runs with its ReLU and
+skip sum as one op, K5 (``ops.transposed_conv3d``), which writes the
+result over the skip. Training, and the network's own ``forward``, keep the
 norms.
 """
 import functools
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.transposed_conv3d import transposed_conv3d
 from ..utils.generic_utils import resolve_device
 from .cnn import FoldCache, fold_conv_norm
 from .feature_extractor import _as_float_tensor
@@ -70,6 +73,10 @@ class DeconvBnReLU(nn.Sequential):
 
     def layers(self):
         return self[0], self[1]
+
+    def forward(self, x, skip):
+        """The layer, then the U-Net's skip sum, made in place."""
+        return super().forward(x).add_(skip)
 
 
 class MVSNetFeatureNet(nn.Module):
@@ -123,17 +130,19 @@ class CostRegNet(nn.Module):
 def unet(x, layer):
     """The U-Net's wiring over ``layer``, its 11 layers in ``stages()``
     order as callables: (1, 1, D, H, W) logits of a (1, 32, D, H, W) cost
-    volume. The skip sums are made in place in the upsampled tensors."""
+    volume. The three upsampling layers (7-9) take the skip too, ``(x,
+    skip)``, and return their output plus the skip, made in place (the
+    modules in their output, the folded layers over the skip)."""
     c0 = layer[0](x)
     del x
     c2 = layer[2](layer[1](c0))
     c4 = layer[4](layer[3](c2))
     x = layer[6](layer[5](c4))
-    x = layer[7](x).add_(c4)
+    x = layer[7](x, c4)
     del c4
-    x = layer[8](x).add_(c2)
+    x = layer[8](x, c2)
     del c2
-    x = layer[9](x).add_(c0)
+    x = layer[9](x, c0)
     del c0
     return layer[10](x)
 
@@ -177,16 +186,18 @@ def soft_argmin(logits, depths):
 def _folded_call(module, weight, bias):
     """A callable that runs ``module`` (a conv, norm, ReLU block or a plain
     conv) with the folded ``weight`` and ``bias``: the conv, then the ReLU
-    where the block has a norm."""
+    where the block has a norm. A transposed conv's block (``DeconvBnReLU``:
+    3x3x3, stride 2, padding 1, output padding 1) runs as K5,
+    ``call(x, skip)``, its ReLU and skip sum in the kernel."""
     conv = module.layers()[0] if hasattr(module, "layers") else module
     relu = conv is not module
     if conv.transposed:
-        op = functools.partial(F.conv_transpose3d, stride=conv.stride,
-                               padding=conv.padding,
-                               output_padding=conv.output_padding)
-    else:
-        op = functools.partial(F.conv2d if weight.dim() == 4 else F.conv3d,
-                               stride=conv.stride, padding=conv.padding)
+        def upsample(x, skip):
+            return transposed_conv3d(x, weight, bias, skip)
+
+        return upsample
+    op = functools.partial(F.conv2d if weight.dim() == 4 else F.conv3d,
+                           stride=conv.stride, padding=conv.padding)
 
     def call(x):
         y = op(x, weight, bias)

@@ -34,8 +34,10 @@ synchronising operations; a 1600x1200 view's features, BatchNorm folded
 into the convolutions, within rtol = atol = 1e-4 of the CPU's unfolded
 stack on >= 0.999 of the elements, with no BatchNorm kernel; K4 (the
 MVSNet cost volume) within rtol 1e-5, atol 1e-6 of its plain version on
->= 0.999 of the values, and the MVSNet pass's depths within 1e-3 of a
-plane interval of the CPU pass's on >= 0.999 of the pixels.
+>= 0.999 of the values; K5 (the U-Net's transposed convs) within 2**-18
+of each output's sum of absolute terms of its plain version; and the
+MVSNet pass's depths within 1e-3 of a plane interval of the CPU pass's on
+>= 0.999 of the pixels.
 """
 import time
 import warnings
@@ -59,6 +61,7 @@ from raynet_tpu_torch.ops import cost_volume as cv
 from raynet_tpu_torch.ops import fused
 from raynet_tpu_torch.ops import planesweep as ps
 from raynet_tpu_torch.ops import ray_marching as rm
+from raynet_tpu_torch.ops import transposed_conv3d as tc
 from raynet_tpu_torch.ops import voxel_depth as vd
 from raynet_tpu_torch.ops.mrf import log_prior
 from raynet_tpu_torch.ops.sampling import segments_in_bbox
@@ -908,15 +911,66 @@ def test_cost_volume_kernel_rejects_what_it_cannot_take(cuda):
         cv.cost_volume(feats, homs[:3], depths)
 
 
+def _transposed_conv_inputs(device, cin, cout, shape, seed=3):
+    """A K5 layer's input, folded-like weight and bias and skip."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn((1, cin) + shape, generator=g))
+    w = torch.randn((cin, cout, 3, 3, 3), generator=g) * (2.0 / cin) ** 0.5
+    b = torch.randn((cout,), generator=g) * 0.1
+    skip = torch.relu(torch.randn((1, cout) + tuple(2 * n for n in shape),
+                                  generator=g))
+    return [t.to(device) for t in (x, w, b, skip)]
+
+
+@pytest.mark.parametrize("cin, cout, shape", [
+    # the U-Net's c7, c9 and c11 at D 256, 296x400 maps
+    (64, 32, (32, 37, 50)), (32, 16, (64, 74, 100)), (16, 8, (128, 148, 200)),
+    # odd sizes, columns off the warps' 32 and rows off the threads' 4
+    (64, 32, (3, 37, 5)), (32, 16, (5, 3, 33)), (16, 8, (1, 1, 1)),
+    (16, 8, (2, 6, 65)),
+])
+def test_transposed_conv3d_kernel_matches_plain(cuda, cin, cout, shape):
+    """K5 against its plain version on the card: within 2**-18 of each
+    output's sum of absolute terms (|b| + sum |x| |w| + |skip|; the kernel
+    sums by fused multiply-adds, the plain version by a product and an
+    add, each a few float32 ulps of it), written over the skip, and one
+    launch counted."""
+    x, w, b, skip = _transposed_conv_inputs(cuda, cin, cout, shape)
+    plain_skip = skip.clone()
+    scale = tc.transposed_conv3d_reference(x.abs(), w.abs(), b.abs(),
+                                           skip.abs())
+    before = tc.transposed_conv3d.launches
+    got = tc.transposed_conv3d(x, w, b, skip)
+    assert tc.transposed_conv3d.launches == before + 1
+    assert got is skip
+    want = tc.transposed_conv3d_reference(x, w, b, plain_skip)
+    assert got.shape == want.shape == (1, cout) + tuple(2 * n for n in shape)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 2.0 ** -18 * scale).all()
+
+
+def test_transposed_conv3d_kernel_rejects_what_it_cannot_take(cuda):
+    x, w, b, skip = _transposed_conv_inputs(cuda, 16, 8, (2, 4, 6))
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.transposed_conv3d(x.transpose(3, 4).contiguous().transpose(3, 4),
+                             w, b, skip)
+    with pytest.raises(ValueError, match="no kernel for 16 -> 16"):
+        tc.transposed_conv3d(x, torch.cat([w, w], 1), torch.cat([b, b]),
+                             torch.cat([skip, skip], 1))
+    with pytest.raises(ValueError, match="float32"):
+        tc.transposed_conv3d(x.double(), w, b, skip)
+
+
 def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
-    """The MVSNet pass on a 128x96 ring rig (D = 16): one K4 launch and
-    one volume a view, the folded U-Net's depths within 1e-3 of a plane
-    interval of the CPU pass's (cuDNN's and the CPU's convolutions sum in
-    other orders) on >= 0.999 of the pixels."""
+    """The MVSNet pass on a 128x96 ring rig (D = 16): one K4 launch, one
+    volume and three K5 launches a view, the folded U-Net's depths within
+    1e-3 of a plane interval of the CPU pass's (cuDNN's and the CPU's
+    convolutions sum in other orders) on >= 0.999 of the pixels."""
     scene = RingScene(4, 96, 128, 220.0, angle_origin=1, bbox_half=6.5)
     gp = type("GP", (), dict(depth_planes=16, neighbors=2))()
     maps, volumes = {}, {}
     before = cv.cost_volume.launches
+    before_k5 = tc.transposed_conv3d.launches
     for dev in (cuda, torch.device("cpu")):
         model = MVSNetModel(seed=3, device=dev)
         fp = MVSNetForwardPass(model, gp, None, scene.image_shape,
@@ -924,6 +978,7 @@ def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
         maps[dev.type] = np.stack(list(fp.forward_pass(scene, (0, 3, 1))))
         volumes[dev.type] = fp.volumes
     assert cv.cost_volume.launches == before + 3
+    assert tc.transposed_conv3d.launches == before_k5 + 9
     assert volumes == {"cuda": 3, "cpu": 3}
     assert maps["cuda"].shape == (3, 24, 32)
     P = cv.feature_cameras([scene.get_image(0).camera.P], 0, 0)
