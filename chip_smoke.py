@@ -206,7 +206,16 @@ order, every phase failing loudly (nonzero exit):
    (32, 64, 74, 100), (16, 128, 148, 200), seeded) against its plain
    version (within 2**-18 of each output's sum of absolute terms), timed
    beside its bound (``k5_cost``), its plain version, cuDNN's transposed
-   conv with the ReLU and skip sum, and the 8 sub-pixel forward convs.
+   conv with the ReLU and skip sum, and the 8 sub-pixel forward convs;
+18. the ``casmvsnet`` pass on phase 17's rig with a ``CasMVSNetModel`` at
+   its published widths (seeded weights): K4 24 times (16 of them in its
+   per-pixel mode), K5 72 times, no other kernel; 24 volumes; wall time,
+   phases, peak memory, the (8, 1184, 1600) maps finite and within the
+   depth range; then K4 at each stage's size on view 0's card features
+   (296x400 planes, 592x800 and 1184x1600 per-pixel around the pass's own
+   depths) against its plain version, timed beside its bound; then K4's
+   plane mode at MVSNet's size equal to its per-pixel mode at a centre of
+   0, bit for bit.
    No module of JAX or of the JAX package may have been imported.
 
 The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
@@ -214,7 +223,7 @@ The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
 The last lines are a JSON summary of the passes, the probes, the trace,
 the host store and the evaluation, the kernels' JSON line (times, bounds,
 launches; K3's rows mode counted in phases 11, 14 and 15, K4 and K5 in
-phase 17's timed pass), and the card's name and
+phases 17 and 18's timed passes), and the card's name and
 power limit before the final JSON line ``{"ok": true, "device": ...}``.
 Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
@@ -2329,6 +2338,164 @@ def phase_k5(check, dev, volume_shape):
     return total
 
 
+def phase_casmvsnet(check, dev, counters):
+    """Phase 18: the ``casmvsnet`` pass on phase 17's 8-image 1600x1200
+    ring (cropped to 1600x1184), every image a reference view with its 4
+    nearest, a ``CasMVSNetModel`` at its published widths with seeded
+    weights: the kernel launches set to 0 just before the timed pass and
+    read just after (K4 three times a view, two of them in its per-pixel
+    mode; K5 nine times a view; no other kernel), its ``volumes``, wall
+    time, phases and peak memory, the maps' shape and range; then K4 at
+    each stage's size on view 0's card features (stage 1 in the plane
+    mode, stages 2 and 3 in the per-pixel mode around the pass's own
+    depths) against its plain version, each timed beside its bound; then
+    K4's plane mode at MVSNet's size against its per-pixel mode at a
+    centre of 0, bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from bench_torch import mvs_roofline, roofline
+    from raynet_tpu_torch.common.generation_parameters import (
+        GenerationParameters,
+    )
+    from raynet_tpu_torch.common.ring_scene import RingScene
+    from raynet_tpu_torch.inference import get_forward_pass_factory
+    from raynet_tpu_torch.models import casmvsnet
+    from raynet_tpu_torch.models.casmvsnet import CasMVSNetModel
+    from raynet_tpu_torch.ops import cost_volume as cv
+    from raynet_tpu_torch.tools.time_kernels import time_ms
+
+    scene = RingScene(MVS_VIEWS, 1200, 1600, 2750.0, angle_step=0.04,
+                      bbox_half=6.5, seed=0)
+    top, left, h, w = cv.crop_window(*scene.image_shape)
+    log("== 18. casmvsnet on the card: CasMVSNetModel (FPN 8/16/32, three "
+        "U-Nets of base 8, seeded weights), %d images of 1600x1200 cropped "
+        "to %dx%d, each a reference view with its 4 nearest, D %s at "
+        "interval ratios %s" % (MVS_VIEWS, w, h, casmvsnet.NDEPTHS,
+                                casmvsnet.INTERVAL_RATIOS))
+    gp = GenerationParameters(neighbors=4)
+    model = CasMVSNetModel(seed=5, device=dev)
+    factory = get_forward_pass_factory("casmvsnet")
+    # an untimed pass first, as phase 17
+    list(factory(model, gp, None, scene.image_shape, device=dev)
+         .forward_pass(scene, (0, MVS_VIEWS, 1)))
+    fp = factory(model, gp, None, scene.image_shape, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    cv.cost_volume.per_pixel_launches = 0
+    t0 = time.perf_counter()
+    maps = np.stack(list(fp.forward_pass(scene, (0, MVS_VIEWS, 1))))
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    per_pixel = cv.cost_volume.per_pixel_launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    phases = {k: v["total_s"] for k, v in fp.timer.summary().items()}
+    pixels = MVS_VIEWS * h * w
+    log("  wall %.3f s, %.0f depth pixels/s (%d); peak device memory %.2f "
+        "GB; launches %s, %d of K4's per-pixel" % (
+            wall, pixels / wall, pixels, peak_gb, launches, per_pixel))
+    for k, v in phases.items():
+        log("  phase %-28s %.3f s" % (k, v))
+    per_view = {"cost_volume": 3, "transposed_conv3d": 9}
+    expect = {k: MVS_VIEWS * per_view.get(k, 0) for k in counters}
+    check(launches == expect and per_pixel == 2 * MVS_VIEWS,
+          "casmvsnet: K4 three times a view (%d of them per-pixel, 2 a "
+          "view), K5 nine times, no other kernel: launches %s"
+          % (per_pixel, launches))
+    check(fp.volumes == 3 * MVS_VIEWS, "casmvsnet: %d cost volumes built, "
+          "three a view" % fp.volumes)
+    P0 = cv.feature_cameras([scene.get_image(0).camera.P], top, left)
+    near, far = cv.depth_range(P0[0], scene.bbox)
+    # the last stage's hypotheses reach past the range by a few intervals
+    slack = 8 * (far - near) / casmvsnet.NUM_DEPTH
+    check(maps.shape == (MVS_VIEWS, h, w) and bool(np.isfinite(maps).all())
+          and bool((maps >= near - slack).all())
+          and bool((maps <= far + slack).all()),
+          "casmvsnet: depth maps %s finite, within the depth range [%.3f, "
+          "%.3f] and 8 intervals: [%.3f, %.3f]"
+          % (maps.shape, near, far, maps.min(), maps.max()))
+    out = {"wall_s": wall, "px_per_s": pixels / wall, "phases_s": phases,
+           "peak_device_gb": peak_gb, "launches": launches,
+           "per_pixel_launches": per_pixel}
+
+    # K4 at each stage's size, on view 0's view set
+    views = scene.get_view_idxs(0, 4)
+    images = np.stack([scene.get_image(j).image_u8[top:top + h,
+                                                   left:left + w]
+                       for j in views])
+    stage_feats = model.predict(images)
+    depth0 = torch.as_tensor(maps[0], device=dev)
+    rows = {}
+    for stage, feats in enumerate(stage_feats):
+        D = casmvsnet.NDEPTHS[stage]
+        s = casmvsnet.STRIDES[stage]
+        H, W = h // s, w // s
+        P = cv.feature_cameras([scene.get_image(j).camera.P for j in views],
+                               top, left, s)
+        homs = torch.as_tensor(cv.homographies(P), device=dev)
+        if stage == 0:
+            depths = torch.as_tensor(cv.plane_depths(P[0], scene.bbox, D),
+                                     device=dev)
+            centre = None
+        else:
+            depths = casmvsnet.hypothesis_offsets(near, far, stage).to(dev)
+            centre = F.interpolate(depth0[None, None], size=(H, W),
+                                   mode="bilinear",
+                                   align_corners=False)[0, 0].contiguous()
+        args = (feats, homs, depths) + (() if centre is None else (centre,))
+        got = cv.cost_volume(*args)
+        want = cv.cost_volume_reference(*args)
+        close = float(torch.isclose(got, want, rtol=1e-5, atol=1e-6)
+                      .float().mean())
+        err = float((got - want).abs().max())
+        mode = "planes" if centre is None else "per-pixel"
+        check(tuple(got.shape) == (1, feats.shape[-1], D, H, W)
+              and bool(torch.isfinite(got).all()) and close >= 0.999,
+              "K4 stage %d (%s) on features %s, D = %d, against its plain "
+              "version on the card: %.7f of the values within rtol 1e-5, "
+              "atol 1e-6 (bar 0.999), max abs err %.3e"
+              % (stage + 1, mode, tuple(feats.shape), D, close, err))
+        del got, want
+        ms = time_ms(lambda: cv.cost_volume(*args))
+        plain_ms = time_ms(lambda: cv.cost_volume_reference(*args),
+                           repeats=3, warmup=1)
+        work = mvs_roofline.cost_volume_cost(len(views), feats.shape[-1], D,
+                                             H, W)
+        if centre is not None:
+            work = roofline.Cost(work.nbytes + 4 * H * W, work.ops)
+        bound_ms = 1e3 * roofline.bound_seconds(work)
+        log("  K4 stage %d (%s, %dx%d, C %d, D %d): %.4f ms a launch, plain "
+            "%.3f ms; bound %.4f ms (%s), %.1f%% of it"
+            % (stage + 1, mode, W, H, feats.shape[-1], D, ms, plain_ms,
+               bound_ms, roofline.bound_by(work), 100 * bound_ms / ms))
+        rows["stage%d" % (stage + 1)] = {
+            "mode": mode, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": roofline.bound_by(work),
+            "max_abs_err": err, "close_share": close}
+    out["k4"] = rows
+    del stage_feats, feats
+
+    # the plane mode at MVSNet's size is the per-pixel mode at a centre of 0
+    P = cv.feature_cameras([scene.get_image(j).camera.P for j in views],
+                           top, left)
+    H, W = h // cv.STRIDE, w // cv.STRIDE
+    g = torch.Generator().manual_seed(7)
+    feats = torch.randn((len(views), H, W, 32), generator=g).to(dev)
+    homs = torch.as_tensor(cv.homographies(P), device=dev)
+    depths = torch.as_tensor(cv.plane_depths(P[0], scene.bbox, MVS_PLANES),
+                             device=dev)
+    zero = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    same = bool(torch.equal(cv.cost_volume(feats, homs, depths),
+                            cv.cost_volume(feats, homs, depths, zero)))
+    check(same, "K4 at MVSNet's size (%dx%d, D %d, C 32): the plane mode "
+          "equals the per-pixel mode at a centre of 0 bit for bit"
+          % (W, H, MVS_PLANES))
+    out["k4"]["plane_equals_per_pixel_at_zero"] = same
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -3177,6 +3344,8 @@ def main(argv=None):
     del raynet_maps, e2e_batch
     # 17. the mvsnet pass, K4 and K5
     mvsnet = phase_mvsnet(check, dev, counters)
+    # 18. the casmvsnet pass and K4's per-pixel mode
+    casmvs = phase_casmvsnet(check, dev, counters)
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "raynet_tpu"))
@@ -3250,13 +3419,16 @@ def main(argv=None):
         # one launch over a view set of the pass (phase 17)
         kernel("cost_volume", "cost_volume.cu",
                "none: new in the port, no TPU counterpart",
-               mvsnet["launches"]["cost_volume"], mvsnet["k4"]["max_abs_err"],
-               mvsnet["k4"]),
+               mvsnet["launches"]["cost_volume"]
+               + casmvs["launches"]["cost_volume"],
+               mvsnet["k4"]["max_abs_err"], mvsnet["k4"],
+               cascade_stages=casmvs["k4"]),
         # the three upsampling layers of a volume (phase 17), summed; per
         # layer under "layers"
         kernel("transposed_conv3d", "transposed_conv3d.cu",
                "none: new in the port, no TPU counterpart",
-               mvsnet["launches"]["transposed_conv3d"],
+               mvsnet["launches"]["transposed_conv3d"]
+               + casmvs["launches"]["transposed_conv3d"],
                mvsnet["k5"]["max_abs_err"], mvsnet["k5"],
                subpixel_ms=mvsnet["k5"]["subpixel_ms"],
                layers=mvsnet["k5"]["layers"]),
@@ -3269,7 +3441,7 @@ def main(argv=None):
                       "hartmann_fp": hartmann, "pretraining": pretraining,
                       "training": training, "keras": keras,
                       "training_quality": quality, "multi_gpu": multi_gpu,
-                      "mvsnet": mvsnet},
+                      "mvsnet": mvsnet, "casmvsnet": casmvs},
                      allow_nan=False))
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(smi)

@@ -2,12 +2,21 @@
 //
 // New in the port, with no TPU counterpart: the JAX package has no MVSNet,
 // and no kernel of it builds a dense cost volume. For every reference
-// feature pixel (u, v) and plane d it warps each source view's feature map
-// by the plane's homography, samples it bilinearly (taps outside the map
-// read 0, as grid_sample with zero padding and align_corners=True) and
-// writes, per channel, the variance over the V views once:
+// feature pixel (u, v) and depth hypothesis d it warps each source view's
+// feature map by the homography of the pixel's depth z, samples it
+// bilinearly (taps outside the map read 0, as grid_sample with zero
+// padding and align_corners=True) and writes, per channel, the variance
+// over the V views once:
 //   out[c][d][v][u] = (sum_i f_i(c)^2) / V - ((sum_i f_i(c)) / V)^2,
-// the reference view unwarped. raynet_tpu_torch/ops/cost_volume.py holds
+// the reference view unwarped. Two modes, one body:
+// - planes (MVSNet; CasMVSNet's first stage): z = depths[d], one
+//   fronto-parallel plane for every pixel;
+// - per pixel (CasMVSNet's later stages, Gu et al., CVPR 2020): z =
+//   centre[v][u] + depths[d], each pixel's hypotheses around its own
+//   centre depth.
+// A source pixel is z A (u, v, 1) + b, taken in both modes as
+// (z A[:, 0]) u + (z (A[:, 1] v + A[:, 2]) + b), so a centre of 0 gives
+// the plane mode's values bit for bit. raynet_tpu_torch/ops/cost_volume.py holds
 // the plain version, which takes the same steps in the same order (the
 // library is built with -fmad=false, so each product rounds alone).
 //
@@ -28,8 +37,10 @@
 //
 // Layout: a block takes 32 consecutive pixels u of one (d, v) row, a
 // quad of 4 channels a thread (256 threads at C 32). Its steps:
-// 1. the row's homography terms of each source, z A[:, 0] and
-//    z (A[:, 1] v + A[:, 2]) + b, once per block into shared memory;
+// 1. the row's homography terms of each source once per block into
+//    shared memory: in the plane mode z A[:, 0] and z (A[:, 1] v +
+//    A[:, 2]) + b; in the per-pixel mode A[:, 0], A[:, 1] v + A[:, 2] and
+//    b, which step 2 multiplies by each pixel's z;
 // 2. each (pixel, source) projected once, in double, into shared memory:
 //    the 4 taps' offsets and float weights;
 // 3. each thread sums its quad: the reference's float4, then per source
@@ -70,12 +81,15 @@ __device__ __forceinline__ float4 load(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+// kPerPixel: z = centre[v][u] + depths[d], else z = depths[d]
+template <bool kPerPixel>
 __global__ void __launch_bounds__(512) cost_volume_kernel(
     const float* __restrict__ features, const double* __restrict__ homs,
-    const double* __restrict__ depths, float* __restrict__ out, int V, int H,
-    int W, int C, int D) {
-  // per source: z A[k][0] (k < 3), then z (A[k][1] v + A[k][2]) + b[k]
-  __shared__ double terms[kMaxSources][6];
+    const double* __restrict__ depths, const float* __restrict__ centre,
+    float* __restrict__ out, int V, int H, int W, int C, int D) {
+  // per source, planes: z A[k][0] (k < 3), then z (A[k][1] v + A[k][2]) +
+  // b[k]; per pixel: A[k][0], A[k][1] v + A[k][2], then b[k]
+  __shared__ double terms[kMaxSources][kPerPixel ? 9 : 6];
   // per (source, pixel): the 4 taps' offsets and weights
   __shared__ int offs[kMaxSources * kPixels][4];
   __shared__ float wts[kMaxSources * kPixels][4];
@@ -86,22 +100,39 @@ __global__ void __launch_bounds__(512) cost_volume_kernel(
   const int S = V - 1;
   if (threadIdx.x < S) {
     const double* h = homs + 12 * threadIdx.x;
-    const double z = depths[d];
     const double dv = (double)v;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      terms[threadIdx.x][k] = z * h[3 * k];
-      terms[threadIdx.x][3 + k] =
-          z * (h[3 * k + 1] * dv + h[3 * k + 2]) + h[9 + k];
+      if (kPerPixel) {
+        terms[threadIdx.x][k] = h[3 * k];
+        terms[threadIdx.x][3 + k] = h[3 * k + 1] * dv + h[3 * k + 2];
+        terms[threadIdx.x][6 + k] = h[9 + k];
+      } else {
+        const double z = depths[d];
+        terms[threadIdx.x][k] = z * h[3 * k];
+        terms[threadIdx.x][3 + k] =
+            z * (h[3 * k + 1] * dv + h[3 * k + 2]) + h[9 + k];
+      }
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < S * kPixels; i += blockDim.x) {
     const double* t = terms[i / kPixels];
-    const double du = (double)(u0 + i % kPixels);
-    const double p0 = t[0] * du + t[3];
-    const double p1 = t[1] * du + t[4];
-    const double p2 = t[2] * du + t[5];
+    const int iu = u0 + i % kPixels;
+    const double du = (double)iu;
+    double p0, p1, p2;
+    if (kPerPixel) {
+      // a pixel past the row's end projects like one at depth d, unused
+      const double z =
+          (double)(iu < W ? centre[(size_t)v * W + iu] : 0.f) + depths[d];
+      p0 = (z * t[0]) * du + (z * t[3] + t[6]);
+      p1 = (z * t[1]) * du + (z * t[4] + t[7]);
+      p2 = (z * t[2]) * du + (z * t[5] + t[8]);
+    } else {
+      p0 = t[0] * du + t[3];
+      p1 = t[1] * du + t[4];
+      p2 = t[2] * du + t[5];
+    }
     const double x = p0 / p2;
     const double y = p1 / p2;
     const double x0 = floor(x), y0 = floor(y);
@@ -162,9 +193,12 @@ __global__ void __launch_bounds__(512) cost_volume_kernel(
 
 }  // namespace
 
+// centre: (H, W) float32 centre depths of the per-pixel mode, or null for
+// the plane mode
 extern "C" int raynet_cost_volume(const float* features, const double* homs,
-                                  const double* depths, float* out, int V,
-                                  int H, int W, int C, int D, void* stream) {
+                                  const double* depths, const float* centre,
+                                  float* out, int V, int H, int W, int C,
+                                  int D, void* stream) {
   if (V < 2 || V - 1 > kMaxSources || C % 4 != 0 || C > kMaxChannels ||
       D > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -172,7 +206,12 @@ extern "C" int raynet_cost_volume(const float* features, const double* homs,
   // a quad of channels a thread, at least a warp
   const int threads = (kPixels * C / 4 + 31) / 32 * 32;
   const dim3 grid((W + kPixels - 1) / kPixels, D, H);
-  cost_volume_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      features, homs, depths, out, V, H, W, C, D);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (centre == nullptr)
+    cost_volume_kernel<false><<<grid, threads, 0, s>>>(
+        features, homs, depths, nullptr, out, V, H, W, C, D);
+  else
+    cost_volume_kernel<true><<<grid, threads, 0, s>>>(
+        features, homs, depths, centre, out, V, H, W, C, D);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
 from .forward_pass import (  # noqa: F401
+    CasMVSNetForwardPass,
     ForwardPass,
     HartmannForwardPass,
     MultiViewCNNForwardPass,

@@ -1,6 +1,6 @@
 """Inference orchestration: the ``multi_view_cnn``,
-``multi_view_cnn_voxel_space``, ``raynet``, ``hartmann_fp`` and ``mvsnet``
-forward passes.
+``multi_view_cnn_voxel_space``, ``raynet``, ``hartmann_fp``, ``mvsnet`` and
+``casmvsnet`` forward passes.
 
 Port of ``raynet_tpu/inference/forward_pass.py``: the ``ForwardPass`` base
 (:109-583), ``MultiViewCNNForwardPass`` (:587),
@@ -26,8 +26,9 @@ for each call it
    the later sweeps read;
 4. runs one depth sweep and yields a ``(W, H).T`` depth map per view.
 
-The Hartmann pass scores patch quintuples instead, and the MVSNet pass
-regularises a dense cost volume (see their classes).
+The Hartmann pass scores patch quintuples instead, the MVSNet pass
+regularises a dense cost volume, and the CasMVSNet pass a cascade of three
+(see their classes).
 
 On the card each of these sweeps is one kernel launch per image (K1 once
 per image in every pass, K3's voxel-depth mode once per image in the
@@ -55,6 +56,7 @@ What the JAX package adds on top of this — beam/band planners, box classes,
 the plan prefetcher and the VMEM retry — exists because Mosaic has no
 in-kernel gather, and is not ported.
 """
+import contextlib
 import functools
 import weakref
 from collections import OrderedDict
@@ -63,7 +65,7 @@ import numpy as np
 import torch
 
 from ..common.image import gather_patches, padded_images
-from ..models import mvsnet
+from ..models import casmvsnet, mvsnet
 from ..models.feature_extractor import zeropad_images
 from ..ops import cost_volume, fused
 from ..ops.mrf import log_prior
@@ -215,7 +217,7 @@ class ForwardPass:
             with span("cnn.upload"):
                 padded = torch.as_tensor(padded, device=self.device)
             with span("cnn.net"):
-                feats = self._model.predict(padded)[0].to(self.device)
+                feats = self._featurise(padded)
         cache[img_idx] = feats
         while len(cache) > self.max_cached_image_features:
             cache.popitem(last=False)
@@ -225,6 +227,11 @@ class ForwardPass:
         """The (1, H', W', C) host array of one image that the model
         takes: the image zero-padded by ``padding``."""
         return zeropad_images([image], self._generation_params.padding)
+
+    def _featurise(self, image):
+        """What the feature cache holds of one image: the model's feature
+        map of the (1, H', W', C) device tensor ``image``."""
+        return self._model.predict(image)[0].to(self.device)
 
     def _features_and_cameras(self, scene, ref_idx):
         """(features (V, Hf, Wf, F), P (V, 3, 4), P_pinv (4, 3),
@@ -261,6 +268,15 @@ def _check_images_range(images_range):
     if not isinstance(images_range, tuple) or len(images_range) != 3:
         raise TypeError("images_range must be a (start, end, skip) tuple")
     return images_range
+
+
+def _upload(values, device):
+    """A float64 host array ``values`` on ``device``, through one
+    page-locked buffer on a card, without blocking the host."""
+    cuda = device.type == "cuda"
+    host = torch.empty(len(values), dtype=torch.float64, pin_memory=cuda)
+    host.numpy()[:] = values
+    return host.to(device, non_blocking=cuda)
 
 
 class _DepthMaps:
@@ -730,13 +746,9 @@ class MVSNetForwardPass(ForwardPass):
         top, left = self._crop[:2]
         P = cost_volume.feature_cameras(
             [scene.get_image(j).camera.P for j in views], top, left)
-        values = np.concatenate([
+        dev = _upload(np.concatenate([
             cost_volume.plane_depths(P[0], scene.bbox, planes),
-            cost_volume.homographies(P).ravel()])
-        cuda = self.device.type == "cuda"
-        host = torch.empty(len(values), dtype=torch.float64, pin_memory=cuda)
-        host.numpy()[:] = values
-        dev = host.to(self.device, non_blocking=cuda)
+            cost_volume.homographies(P).ravel()]), self.device)
         return dev[:planes], dev[planes:].view(len(views) - 1, 12)
 
     def forward_pass(self, scene, images_range):
@@ -781,12 +793,131 @@ class MVSNetForwardPass(ForwardPass):
             yield self._wait_map(maps, pending, overlapped=False)
 
 
+class CasMVSNetForwardPass(MVSNetForwardPass):
+    """CasMVSNet, Gu et al., CVPR 2020 (factory name: casmvsnet).
+
+    The model is a ``models.casmvsnet.CasMVSNetModel``. Each image is
+    centre cropped as the MVSNet pass crops it (DTU's 1600 x 1200 to 1600
+    x 1184), and its FPN's three maps (32 channels at a quarter of the
+    crop's resolution, 16 at a half, 8 at full) come from the per-image
+    cache the other passes use. For each reference view of
+    ``images_range``, with its ``scene.get_view_idxs`` neighbours, three
+    stages, each with its own cameras (the intrinsics divided by the
+    stage's stride), homographies and hypotheses, uploaded as the MVSNet
+    pass uploads them; K4's variance cost volume; the stage's U-Net; and
+    the soft-argmin depth over the stage's hypotheses. Stage 1's are
+    ``casmvsnet.NDEPTHS[0]`` planes uniform in the reference camera's z
+    over the bbox, K4's plane mode; a later stage's are each pixel's
+    centre depth (``casmvsnet.centre_depth`` of the previous stage's depth,
+    on the device) plus ``casmvsnet.hypothesis_offsets``, K4's per-pixel
+    mode, so no stage waits for the host. The last stage's depth, a (H,
+    W) map of camera z of the crop, goes to the host as the MVSNet pass's
+    does; ``depth_planes`` and ``rays_batch`` are not read.
+
+    Spans and phases are the MVSNet pass's, once a stage, and
+    ``cas.hypotheses`` the centre depth and the hypotheses of a later
+    stage; the phase "Fine regularization" nests in "Cost regularization"
+    around the last stage's U-Net. ``volumes`` counts the cost volumes
+    built over the object's calls, 3 a view. ``stage_depths`` gives the
+    three stages' maps of one reference view, by the same stages.
+    """
+
+    def _featurise(self, image):
+        return [m[0] for m in self._model.predict(image)]
+
+    def _stage_planes(self, scene, views, stage):
+        """(depths (D,), homographies (V - 1, 12)) float64 on the device of
+        stage ``stage`` of a view set (the reference first): the planes'
+        depths in stage 1, else the hypotheses' offsets from a pixel's
+        centre depth."""
+        top, left = self._crop[:2]
+        P = cost_volume.feature_cameras(
+            [scene.get_image(j).camera.P for j in views], top, left,
+            casmvsnet.STRIDES[stage])
+        D = casmvsnet.NDEPTHS[stage]
+        if stage == 0:
+            depths = cost_volume.plane_depths(P[0], scene.bbox, D)
+        else:
+            depths = casmvsnet.hypothesis_offsets(
+                *cost_volume.depth_range(P[0], scene.bbox), stage).numpy()
+        dev = _upload(np.concatenate(
+            [depths, cost_volume.homographies(P).ravel()]), self.device)
+        return dev[:D], dev[D:].view(len(views) - 1, 12)
+
+    def stage_depths(self, scene, ref_idx):
+        """[stage 1's (H / 4, W / 4), stage 2's (H / 2, W / 2), stage 3's
+        (H, W)] float32 depth maps on the device of reference image
+        ``ref_idx``, H x W the crop: the stages ``forward_pass`` runs, each
+        one's map kept, so that each can be checked on its own input."""
+        self._check_scene(scene)
+        self._crop = cost_volume.crop_window(*scene.image_shape)
+        return self._cascade(scene, ref_idx)
+
+    def _cascade(self, scene, ref_idx):
+        """Each stage's depth map of reference image ``ref_idx``."""
+        shape = self._crop[2:]
+        views = scene.get_view_idxs(ref_idx,
+                                    self._generation_params.neighbors)
+        feats = [self._image_features(scene, j) for j in views]
+        last = len(casmvsnet.NDEPTHS) - 1
+        out, depth = [], None
+        for stage in range(last + 1):
+            features = torch.stack([f[stage] for f in feats])
+            with span("mvs.planes"):
+                depths, homs = self._stage_planes(scene, views, stage)
+            centre, hypotheses = None, depths
+            if stage:
+                with span("cas.hypotheses"):
+                    centre = casmvsnet.centre_depth(depth, shape, stage)
+                    hypotheses = centre.to(torch.float64) \
+                        + depths[:, None, None]
+            with self.timer.phase("Cost volume"), span("mvs.cost_volume"):
+                volume = cost_volume.cost_volume(features, homs, depths,
+                                                 centre)
+            self.volumes += 1
+            del features
+            fine = (self.timer.phase("Fine regularization")
+                    if stage == last else contextlib.nullcontext())
+            with self.timer.phase("Cost regularization"), \
+                    span("mvs.regularize"), fine:
+                logits = self._model.regularize(volume, stage)
+            del volume
+            with self.timer.phase("Depth regression"), span("mvs.regress"):
+                depth = mvsnet.soft_argmin(logits,
+                                           hypotheses.to(torch.float32))
+            out.append(depth)
+            del logits, centre, hypotheses
+        return out
+
+    def forward_pass(self, scene, images_range):
+        """Yield one (H, W) float32 depth map per reference image of
+        ``images_range`` = (start, end, skip), H x W the crop."""
+        start, end, skip = _check_images_range(images_range)
+        self._check_scene(scene)
+        self._crop = cost_volume.crop_window(*scene.image_shape)
+        shape = self._crop[2:]
+        maps = _DepthMaps(self.device, *shape, self._every_ray(*shape))
+        rays = maps.rays(maps.every_ray)
+        pending = None
+        for ref_idx in range(start, end, skip):
+            depth = self._cascade(scene, ref_idx)[-1]
+            with span("depth.scatter"):
+                # the (W, H) order of the maps' rays
+                queued = maps.start(depth.t().reshape(-1), rays)
+            if pending is not None:
+                yield self._wait_map(maps, pending, overlapped=True)
+            pending = queued
+        if pending is not None:
+            yield self._wait_map(maps, pending, overlapped=False)
+
+
 _FACTORIES = {
     "multi_view_cnn": MultiViewCNNForwardPass,
     "multi_view_cnn_voxel_space": MultiViewCNNVoxelSpaceForwardPass,
     "raynet": RayNetForwardPass,
     "hartmann_fp": HartmannForwardPass,
     "mvsnet": MVSNetForwardPass,
+    "casmvsnet": CasMVSNetForwardPass,
 }
 
 

@@ -104,19 +104,23 @@ class MVSNetFeatureNet(nn.Module):
 
 
 class CostRegNet(nn.Module):
-    def __init__(self):
+    """The U-Net of a volume of ``in_channels``; ``prob_bias``: whether its
+    last conv has a bias; ``deconv``: the class of its upsampling blocks,
+    ``deconv(cin, cout)``. The defaults are MVSNet's."""
+
+    def __init__(self, in_channels=32, prob_bias=True, deconv=DeconvBnReLU):
         super().__init__()
-        self.conv0 = ConvBnReLU(32, 8, dims=3)
+        self.conv0 = ConvBnReLU(in_channels, 8, dims=3)
         self.conv1 = ConvBnReLU(8, 16, stride=2, dims=3)
         self.conv2 = ConvBnReLU(16, 16, dims=3)
         self.conv3 = ConvBnReLU(16, 32, stride=2, dims=3)
         self.conv4 = ConvBnReLU(32, 32, dims=3)
         self.conv5 = ConvBnReLU(32, 64, stride=2, dims=3)
         self.conv6 = ConvBnReLU(64, 64, dims=3)
-        self.conv7 = DeconvBnReLU(64, 32)
-        self.conv9 = DeconvBnReLU(32, 16)
-        self.conv11 = DeconvBnReLU(16, 8)
-        self.prob = nn.Conv3d(8, 1, 3, stride=1, padding=1)
+        self.conv7 = deconv(64, 32)
+        self.conv9 = deconv(32, 16)
+        self.conv11 = deconv(16, 8)
+        self.prob = nn.Conv3d(8, 1, 3, stride=1, padding=1, bias=prob_bias)
 
     def stages(self):
         return [self.conv0, self.conv1, self.conv2, self.conv3, self.conv4,
@@ -158,29 +162,37 @@ class MVSNet(nn.Module):
         self.cost_regularization = CostRegNet()
 
     def reset_parameters(self, generator):
-        """He-uniform kernels (bound sqrt(6 / fan_in), the fan-in of a
-        stride-2 transposed conv's output taken as in x 27 / 8), zero
-        biases and BatchNorm at its defaults, drawn from ``generator``."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
-                    w = m.weight
-                    fan_in = math.prod(w.shape[1:])
-                    if m.transposed:
-                        fan_in = w.shape[0] * math.prod(w.shape[2:]) / 8
-                    bound = math.sqrt(6.0 / fan_in)
-                    w.uniform_(-bound, bound, generator=generator)
-                    if m.bias is not None:
-                        m.bias.zero_()
-                elif isinstance(m, nn.modules.batchnorm._BatchNorm):
-                    m.reset_parameters()
+        reset_parameters(self, generator)
+
+
+def reset_parameters(net, generator):
+    """He-uniform kernels (bound sqrt(6 / fan_in), the fan-in of a stride-2
+    transposed conv's output taken as in x 27 / 8), zero biases and
+    BatchNorm at its defaults, drawn from ``generator``, for every layer
+    of ``net``."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+                w = m.weight
+                fan_in = math.prod(w.shape[1:])
+                if m.transposed:
+                    fan_in = w.shape[0] * math.prod(w.shape[2:]) / 8
+                bound = math.sqrt(6.0 / fan_in)
+                w.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+                m.reset_parameters()
 
 
 def soft_argmin(logits, depths):
-    """(H, W) expected depth of (1, 1, D, H, W) plane logits: the softmax
-    over the D planes, then the sum of ``depths`` (D,) weighted by it."""
+    """(H, W) expected depth of (1, 1, D, H, W) logits: the softmax over
+    the D hypotheses, then the sum of ``depths`` weighted by it, (D,) plane
+    depths or (D, H, W) depths of each pixel's own hypotheses."""
     prob = torch.softmax(logits[0, 0], dim=0)
-    return (prob * depths[:, None, None]).sum(dim=0)
+    if depths.dim() == 1:
+        depths = depths[:, None, None]
+    return (prob * depths).sum(dim=0)
 
 
 def _folded_call(module, weight, bias):
@@ -209,13 +221,14 @@ def _folded_call(module, weight, bias):
 def fold(stages):
     """One callable per layer of ``stages``, each block's eval-mode
     BatchNorm folded into its conv (``cnn.fold_conv_norm``); a plain conv
-    keeps its own weight and bias."""
+    keeps its own weight and bias (or none)."""
     out = []
     for m in stages:
         if hasattr(m, "layers"):
             weight, bias = fold_conv_norm(*m.layers())
         else:
-            weight, bias = m.weight.detach(), m.bias.detach()
+            weight = m.weight.detach()
+            bias = None if m.bias is None else m.bias.detach()
         out.append(_folded_call(m, weight, bias))
     return out
 

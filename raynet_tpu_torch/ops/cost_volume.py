@@ -1,35 +1,43 @@
 """K4: MVSNet's variance cost volume, and its plain version.
 
 ``cost_volume`` runs the CUDA kernel ``csrc/cost_volume.cu`` for CUDA
-tensors and ``cost_volume_reference`` (plain PyTorch, a plane chunk at a
-time) for CPU tensors. For every reference feature pixel (u, v) and plane
-depth z_d, each source view's feature map is sampled bilinearly where the
-plane's homography takes the pixel (taps outside the map read 0, as
-``grid_sample`` with zero padding and ``align_corners=True``), and the
-volume holds, per channel, the variance over the V views (MVSNet, ECCV
-2018, eq. 2, as MVSNet_pytorch computes it):
+tensors and ``cost_volume_reference`` (plain PyTorch, a hypothesis chunk
+at a time) for CPU tensors. For every reference feature pixel (u, v) and
+depth hypothesis z_d, each source view's feature map is sampled
+bilinearly where the homography of depth z_d takes the pixel (taps outside
+the map read 0, as ``grid_sample`` with zero padding and
+``align_corners=True``), and the volume holds, per channel, the variance
+over the V views (MVSNet, ECCV 2018, eq. 2, as MVSNet_pytorch computes
+it):
 
     C(c, d, v, u) = (sum_i f_i(c)^2) / V - ((sum_i f_i(c)) / V)^2,
 
-the reference view entering unwarped. Both versions take the same steps
-in the same order (the kernel is built without multiply-add contraction),
-so they round alike. The warp (the homographies, the projection, its
+the reference view entering unwarped. The hypotheses are planes, z_d =
+``depths[d]`` for every pixel (MVSNet; CasMVSNet's first stage), or, given
+a ``centre`` map, per pixel, z_d(v, u) = ``centre[v, u] + depths[d]``
+(CasMVSNet's later stages, Gu et al., CVPR 2020, each pixel's hypotheses
+around the previous stage's depth). Both take a source pixel as (z A[:, 0])
+u + (z (A[:, 1] v + A[:, 2]) + b), so a centre of 0 gives the planes'
+volume bit for bit. Both versions take the same steps in the same order
+(the kernel is built without multiply-add contraction), so they round
+alike. The warp (the homographies, the projection, its
 division and the bilinear weights) is float64: at 400-pixel maps a
 float32 coordinate is off by ~1e-5 pixel, which white-noise features
 turn into ~2e-5 of the variance (see ``csrc/cost_volume.cu``).
 
 The host helpers give the geometry: ``crop_window`` (MVSNet's centre crop
-to multiples of 32), ``feature_cameras`` (the projections at the feature
-maps' quarter resolution, scaled so that the third row gives camera z),
-``plane_depths`` (fronto-parallel planes in the reference camera's z over
-the bbox) and ``homographies``.
+to multiples of 32), ``feature_cameras`` (the projections at a feature
+map's resolution, a quarter of the image's for MVSNet, scaled so that the
+third row gives camera z), ``depth_range`` and ``plane_depths``
+(fronto-parallel planes in the reference camera's z over the bbox) and
+``homographies``.
 """
 import numpy as np
 import torch
 
 from . import cuda_build
 
-# the feature maps' stride in the image
+# MVSNet's feature maps' stride in the image
 STRIDE = 4
 # the image's crop: height and width down to multiples of this (the U-Net
 # halves the quarter-resolution maps three times)
@@ -49,22 +57,22 @@ def crop_window(height, width, multiple=CROP_MULTIPLE):
     return (height - h) // 2, (width - w) // 2, h, w
 
 
-def feature_cameras(Ps, top, left):
+def feature_cameras(Ps, top, left, stride=STRIDE):
     """(V, 3, 4) float64 projections into feature-map pixels of cameras
     ``Ps`` (V, 3, 4) of the uncropped image: the crop's offset taken off,
-    the intrinsics divided by ``STRIDE`` (as MVSNet scales them), and each
-    matrix divided by the norm of its third row's first three entries, so
-    that the third homogeneous coordinate of a projected point is its depth
-    along the camera's axis."""
+    the intrinsics divided by the feature map's ``stride`` (as MVSNet and
+    CasMVSNet scale them), and each matrix divided by the norm of its
+    third row's first three entries, so that the third homogeneous
+    coordinate of a projected point is its depth along the camera's
+    axis."""
     shift = np.array([[1.0, 0, -left], [0, 1.0, -top], [0, 0, 1.0]])
-    scale = np.diag([1.0 / STRIDE, 1.0 / STRIDE, 1.0])
+    scale = np.diag([1.0 / stride, 1.0 / stride, 1.0])
     out = scale @ shift @ np.asarray(Ps, np.float64)
     return out / np.linalg.norm(out[:, 2, :3], axis=-1)[:, None, None]
 
 
-def plane_depths(P_ref, bbox, planes):
-    """(D,) float64 depths of ``planes`` fronto-parallel planes, uniform in
-    the reference camera's z from the nearest to the farthest of the bbox's
+def depth_range(P_ref, bbox):
+    """(nearest, farthest) float64 z in the reference camera of the bbox's
     8 corners (``P_ref`` from ``feature_cameras``)."""
     box = np.asarray(bbox, np.float64).reshape(2, 3)
     corners = np.array([[box[i, 0], box[j, 1], box[k, 2], 1.0]
@@ -72,8 +80,16 @@ def plane_depths(P_ref, bbox, planes):
     z = corners @ P_ref[2]
     if z.min() <= 0:
         raise ValueError("the bbox reaches behind the reference camera")
-    step = (z.max() - z.min()) / (planes - 1)
-    return z.min() + step * np.arange(planes)
+    return z.min(), z.max()
+
+
+def plane_depths(P_ref, bbox, planes):
+    """(D,) float64 depths of ``planes`` fronto-parallel planes, uniform in
+    the reference camera's z from the nearest to the farthest of the bbox's
+    8 corners (``depth_range``)."""
+    lo, hi = depth_range(P_ref, bbox)
+    step = (hi - lo) / (planes - 1)
+    return lo + step * np.arange(planes)
 
 
 def homographies(P):
@@ -116,9 +132,9 @@ def _bilinear(feats, x, y):
     return out
 
 
-def cost_volume_reference(features, homs, depths):
-    """Plain PyTorch K4: (1, C, D, H, W) float32, ``PLAIN_BLOCK`` (plane,
-    pixel) pairs at a time."""
+def cost_volume_reference(features, homs, depths, centre=None):
+    """Plain PyTorch K4: (1, C, D, H, W) float32, ``PLAIN_BLOCK``
+    (hypothesis, pixel) pairs at a time."""
     V, H, W, C = features.shape
     D = depths.shape[0]
     dev = features.device
@@ -130,11 +146,13 @@ def cost_volume_reference(features, homs, depths):
     step = max(1, PLAIN_BLOCK // (H * W))
     for d0 in range(0, D, step):
         z = depths[d0:d0 + step, None, None]
+        if centre is not None:
+            z = centre.to(torch.float64) + z
         s = ref.expand((z.shape[0],) + ref.shape)
         q = ref * ref
         for k in range(V - 1):
             A, b = homs[k, :9].reshape(3, 3), homs[k, 9:]
-            # in float64: per (plane, row) once, then per pixel
+            # in float64: with planes per (plane, row) once, then per pixel
             p = [(z * A[i, 0]) * uu + (z * (A[i, 1] * vv + A[i, 2]) + b[i])
                  for i in range(3)]
             val = _bilinear(features[k + 1], p[0] / p[2], p[1] / p[2])
@@ -145,7 +163,7 @@ def cost_volume_reference(features, homs, depths):
     return out
 
 
-def _cost_volume_cuda(features, homs, depths):
+def _cost_volume_cuda(features, homs, depths, centre):
     V, H, W, C = features.shape
     D = depths.shape[0]
     if C % 4 != 0 or C > 64:
@@ -158,7 +176,11 @@ def _cost_volume_cuda(features, homs, depths):
     cuda_build.check_tensor(op, "homographies", homs, torch.float64,
                             (V - 1, 12))
     cuda_build.check_tensor(op, "depths", depths, torch.float64, (D,))
-    for name, t in (("homographies", homs), ("depths", depths)):
+    operands = [("homographies", homs), ("depths", depths)]
+    if centre is not None:
+        cuda_build.check_tensor(op, "centre", centre, torch.float32, (H, W))
+        operands.append(("centre", centre))
+    for name, t in operands:
         if t.device != features.device:
             raise ValueError("cost_volume: %s is on %s, features on %s"
                              % (name, t.device, features.device))
@@ -170,13 +192,15 @@ def _cost_volume_cuda(features, homs, depths):
     out = torch.empty((1, C, D, H, W), dtype=torch.float32,
                       device=features.device)
     cuda_build.launch("raynet_cost_volume", features, features.data_ptr(),
-                      homs.data_ptr(), depths.data_ptr(), out.data_ptr(),
-                      V, H, W, C, D)
+                      homs.data_ptr(), depths.data_ptr(),
+                      None if centre is None else centre.data_ptr(),
+                      out.data_ptr(), V, H, W, C, D)
     cost_volume.launches += 1
+    cost_volume.per_pixel_launches += centre is not None
     return out
 
 
-def cost_volume(features, homs, depths):
+def cost_volume(features, homs, depths, centre=None):
     """MVSNet's variance cost volume.
 
     Arguments
@@ -184,14 +208,21 @@ def cost_volume(features, homs, depths):
         features: (V, H, W, C) float32 feature maps, channels last, view 0
             the reference view
         homs: (V - 1, 12) float64 ``homographies`` of the source views
-        depths: (D,) float64 plane depths
+        depths: (D,) float64 plane depths, or with ``centre`` each
+            hypothesis's offset from the pixel's centre depth
+        centre: None (planes), or (H, W) float32 centre depths of the
+            reference pixels (per-pixel hypotheses)
 
     Returns the (1, C, D, H, W) float32 volume.
     """
     if cuda_build.on_cuda("cost_volume", features):
-        return _cost_volume_cuda(features, homs, depths)
-    return cost_volume_reference(features, homs, depths)
+        return _cost_volume_cuda(features, homs, depths, centre)
+    if centre is None:
+        return cost_volume_reference(features, homs, depths)
+    return cost_volume_reference(features, homs, depths, centre)
 
 
-# Kernel launches since the last reset (the plain path never counts).
+# Kernel launches since the last reset, and those of them in the per-pixel
+# mode (the plain path never counts).
 cost_volume.launches = 0
+cost_volume.per_pixel_launches = 0

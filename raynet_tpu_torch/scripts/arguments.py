@@ -185,6 +185,7 @@ def add_forward_pass_factory_related_arguments(parser):
             "hartmann_fp",
             "raynet",
             "mvsnet",
+            "casmvsnet",
         ],
         default="multi_view_cnn",
     )

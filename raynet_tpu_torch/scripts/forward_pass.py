@@ -4,12 +4,16 @@
 The PyTorch twin of ``raynet_tpu/scripts/forward_pass.py``: the same
 positional arguments, flags and ``depth_%03d.npy`` outputs, plus
 ``--device`` (default ``cuda``), for all four factories, and the port's
-own ``mvsnet``. As in the JAX package the model is a ``FeatureExtractor``
-of ``--cnn_factory`` for every factory of the JAX package, ``hartmann_fp``
-included (which then scores a quintuple by channel 0 of its features);
-``mvsnet`` takes an ``MVSNetModel`` whose ``--weight_file`` is a
-``torch.save``d ``MVSNet`` state dict, and writes (H / 4, W / 4) maps of
-camera z of the image cropped to multiples of 32. Scenes are read by the
+own ``mvsnet`` and ``casmvsnet``. As in the JAX package the model is a
+``FeatureExtractor`` of ``--cnn_factory`` for every factory of the JAX
+package, ``hartmann_fp`` included (which then scores a quintuple by
+channel 0 of its features); ``mvsnet`` takes an ``MVSNetModel`` whose
+``--weight_file`` is a ``torch.save``d ``MVSNet`` state dict, and writes
+(H / 4, W / 4) maps of camera z of the image cropped to multiples of 32;
+``casmvsnet`` takes a ``CasMVSNetModel`` whose ``--weight_file`` is a
+``torch.save``d ``CasMVSNet`` state dict (cascade-stereo's names), and
+writes (H, W) maps of the same crop (its hypotheses are the model's own:
+``--depth_planes`` is not read). Scenes are read by the
 port's own data layer (``raynet_tpu_torch/common``), so the CLI runs
 without the JAX package.
 
@@ -30,6 +34,7 @@ from ..common.generation_parameters import GenerationParameters
 from ..common.sampling_schemes import make_sampling_scheme
 from ..inference import get_forward_pass_factory
 from ..models.feature_extractor import FeatureExtractor
+from ..models.casmvsnet import CasMVSNetModel
 from ..models.mvsnet import MVSNetModel
 from ..parallel import sharding
 from .arguments import (
@@ -104,8 +109,11 @@ def _run(args, writes):
     scene = dataset.get_scene(args.scene_idx)
 
     channels = generation_params.patch_shape[-1]
-    if args.forward_pass_factory == "mvsnet":
-        model = _mvsnet_model(args.weight_file, args.device, writes)
+    cost_volume_models = {"mvsnet": MVSNetModel, "casmvsnet": CasMVSNetModel}
+    if args.forward_pass_factory in cost_volume_models:
+        model = _cost_volume_model(
+            cost_volume_models[args.forward_pass_factory], args.weight_file,
+            args.device, writes)
     elif args.weight_file:
         model = FeatureExtractor.from_weights(
             args.cnn_factory, args.weight_file, channels=channels,
@@ -140,16 +148,17 @@ def _run(args, writes):
             print("saved", out)
 
 
-def _mvsnet_model(weight_file, device, writes):
-    """The MVSNet of ``weight_file``, a ``torch.save``d ``MVSNet`` state
-    dict (MVSNet_pytorch's names), or random weights without one."""
+def _cost_volume_model(cls, weight_file, device, writes):
+    """The ``cls`` (``MVSNetModel`` or ``CasMVSNetModel``) of
+    ``weight_file``, a ``torch.save``d state dict of its network, or random
+    weights without one."""
     if not weight_file:
         if writes:
-            print("WARNING: no --weight_file given; using random MVSNet "
-                  "weights")
-        return MVSNetModel(device=device)
-    return MVSNetModel(state_dict=torch.load(weight_file, map_location="cpu"),
-                       device=device)
+            print("WARNING: no --weight_file given; using random %s "
+                  "weights" % cls.__name__)
+        return cls(device=device)
+    return cls(state_dict=torch.load(weight_file, map_location="cpu"),
+               device=device)
 
 
 if __name__ == "__main__":

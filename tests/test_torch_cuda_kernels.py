@@ -34,10 +34,14 @@ synchronising operations; a 1600x1200 view's features, BatchNorm folded
 into the convolutions, within rtol = atol = 1e-4 of the CPU's unfolded
 stack on >= 0.999 of the elements, with no BatchNorm kernel; K4 (the
 MVSNet cost volume) within rtol 1e-5, atol 1e-6 of its plain version on
->= 0.999 of the values; K5 (the U-Net's transposed convs) within 2**-18
+>= 0.999 of the values, in its plane mode and in its per-pixel mode
+(CasMVSNet's later stages), and the per-pixel mode at a centre of 0 equal
+to the plane mode bit for bit; K5 (the U-Net's transposed convs) within 2**-18
 of each output's sum of absolute terms of its plain version; and the
 MVSNet pass's depths within 1e-3 of a plane interval of the CPU pass's on
->= 0.999 of the pixels.
+>= 0.999 of the pixels, the CasMVSNet pass's within 5e-3 of its last
+stage's interval (its first two stages' errors carry into the last stage's
+hypotheses, see ``tests/test_torch_casmvsnet.py``).
 """
 import time
 import warnings
@@ -49,11 +53,14 @@ import torch
 from bench_torch.scene import cnn_weights
 from raynet_tpu_torch.common.ring_scene import RingScene
 from raynet_tpu_torch.inference import (
+    CasMVSNetForwardPass,
     MultiViewCNNForwardPass,
     MultiViewCNNVoxelSpaceForwardPass,
     MVSNetForwardPass,
     RayNetForwardPass,
 )
+from raynet_tpu_torch.models import casmvsnet
+from raynet_tpu_torch.models.casmvsnet import CasMVSNetModel
 from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
 from raynet_tpu_torch.models.mvsnet import MVSNetModel
 from raynet_tpu_torch.ops import bp_sweep as bp
@@ -863,15 +870,18 @@ def test_phase_time_from_events_matches_a_synced_wall_time(cuda,
     assert timer.totals["products"] == pytest.approx(wall, rel=0.05)
 
 
-def _cost_volume_inputs(device, shape=(296, 400), D=64, C=32, seed=5):
-    """Features of 5 views of a ring rig at a quarter of ``shape`` x 4
-    (the reference first), their plane homographies and D plane depths:
-    the geometry of the MVSNet pass, with taps off every map's edges."""
+def _cost_volume_inputs(device, shape=(296, 400), D=64, C=32, seed=5,
+                        stride=4):
+    """Features of 5 views of a ring rig at 1 / ``stride`` of ``shape`` x
+    ``stride`` (the reference first), their plane homographies and D plane
+    depths: the geometry of the MVSNet pass (stride 4) or of a CasMVSNet
+    stage, with taps off every map's edges."""
     h, w = shape
-    scene = RingScene(6, 4 * h, 4 * w, 2750.0 / 1600 * 4 * w, angle_step=0.04,
-                      angle_origin=1, bbox_half=6.5)
+    scene = RingScene(6, stride * h, stride * w, 2750.0 / 1600 * stride * w,
+                      angle_step=0.04, angle_origin=1, bbox_half=6.5)
     P = cv.feature_cameras([scene.get_image(j).camera.P
-                            for j in scene.get_view_idxs(1, 4)], 0, 0)
+                            for j in scene.get_view_idxs(1, 4)], 0, 0,
+                           stride)
     g = torch.Generator().manual_seed(seed)
     feats = torch.randn((5, h, w, C), generator=g).to(device)
     homs = torch.as_tensor(cv.homographies(P), device=device)
@@ -909,6 +919,55 @@ def test_cost_volume_kernel_rejects_what_it_cannot_take(cuda):
         cv.cost_volume(feats.transpose(1, 2), homs, depths)
     with pytest.raises(ValueError, match="homographies"):
         cv.cost_volume(feats, homs[:3], depths)
+    with pytest.raises(ValueError, match="centre"):
+        cv.cost_volume(feats, homs, depths,
+                       torch.zeros((8, 23), device=cuda))
+
+
+def _centre(depths, shape, device):
+    """A smooth (H, W) float32 map of centre depths across the planes'
+    range."""
+    lo, hi = float(depths[0]), float(depths[-1])
+    v = torch.arange(shape[0], dtype=torch.float64)[:, None]
+    u = torch.arange(shape[1], dtype=torch.float64)
+    t = 0.5 + 0.4 * torch.sin(u / 7.0) * torch.cos(v / 5.0)
+    return (lo + (hi - lo) * t).to(torch.float32).to(device)
+
+
+@pytest.mark.parametrize("shape, D, C, stride", [
+    # CasMVSNet's three stages at DTU's 1600x1184 crop
+    ((296, 400), 48, 32, 4), ((592, 800), 32, 16, 2),
+    ((1184, 1600), 8, 8, 1)])
+def test_cost_volume_per_pixel_kernel_matches_plain(cuda, shape, D, C,
+                                                    stride):
+    """K4's per-pixel mode against its plain version on the card at the
+    cascade's stage sizes: within rtol 1e-5, atol 1e-6 on >= 0.999 of the
+    values, as the plane mode, and one launch counted as per-pixel."""
+    feats, homs, depths = _cost_volume_inputs(cuda, shape, D, C,
+                                              stride=stride)
+    centre = _centre(depths.cpu(), shape, cuda)
+    offsets = depths - depths[D // 2]
+    before = (cv.cost_volume.launches, cv.cost_volume.per_pixel_launches)
+    got = cv.cost_volume(feats, homs, offsets, centre)
+    assert (cv.cost_volume.launches, cv.cost_volume.per_pixel_launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = cv.cost_volume_reference(feats, homs, offsets, centre)
+    assert got.shape == want.shape == (1, C, D) + tuple(shape)
+    close = torch.isclose(got, want, rtol=1e-5, atol=1e-6)
+    assert close.float().mean().item() >= 0.999
+    assert torch.isfinite(got).all()
+
+
+def test_cost_volume_plane_mode_is_the_per_pixel_mode_at_zero(cuda):
+    """At MVSNet's size (296x400, D 256, C 32) the plane mode equals the
+    per-pixel mode fed a centre of 0 and the planes as offsets, bit for
+    bit: one body, one homography expression."""
+    feats, homs, depths = _cost_volume_inputs(cuda, (296, 400), 256, 32)
+    before = cv.cost_volume.per_pixel_launches
+    planes = cv.cost_volume(feats, homs, depths)
+    assert cv.cost_volume.per_pixel_launches == before
+    zero = torch.zeros((296, 400), dtype=torch.float32, device=cuda)
+    assert torch.equal(cv.cost_volume(feats, homs, depths, zero), planes)
 
 
 def _transposed_conv_inputs(device, cin, cout, shape, seed=3):
@@ -985,3 +1044,31 @@ def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
     z = cv.plane_depths(P[0], scene.bbox, 16)
     gap = np.abs(maps["cuda"] - maps["cpu"]) / (z[1] - z[0])
     assert np.mean(gap <= 1e-3) >= 0.999
+
+
+def test_casmvsnet_pass_on_the_card_matches_the_cpu(cuda):
+    """The CasMVSNet pass on a 128x96 ring rig: K4 three times a view, the
+    later two in the per-pixel mode, nine K5 launches a view (three U-Nets
+    of three), three volumes a view, and the last stage's depths within
+    5e-3 of its interval of the CPU pass's on >= 0.999 of the pixels."""
+    scene = RingScene(4, 96, 128, 220.0, angle_origin=1, bbox_half=6.5)
+    gp = type("GP", (), dict(neighbors=2))()
+    maps, volumes = {}, {}
+    before = (cv.cost_volume.launches, cv.cost_volume.per_pixel_launches,
+              tc.transposed_conv3d.launches)
+    for dev in (cuda, torch.device("cpu")):
+        model = CasMVSNetModel(seed=3, device=dev)
+        fp = CasMVSNetForwardPass(model, gp, None, scene.image_shape,
+                                  device=dev)
+        maps[dev.type] = np.stack(list(fp.forward_pass(scene, (0, 3, 1))))
+        volumes[dev.type] = fp.volumes
+    assert (cv.cost_volume.launches, cv.cost_volume.per_pixel_launches,
+            tc.transposed_conv3d.launches) == (before[0] + 9, before[1] + 6,
+                                               before[2] + 27)
+    assert volumes == {"cuda": 9, "cpu": 9}
+    assert maps["cuda"].shape == (3, 96, 128)
+    P = cv.feature_cameras([scene.get_image(0).camera.P], 0, 0)
+    near, far = cv.depth_range(P[0], scene.bbox)
+    interval = (far - near) / casmvsnet.NUM_DEPTH
+    gap = np.abs(maps["cuda"] - maps["cpu"]) / interval
+    assert np.mean(gap <= 5e-3) >= 0.999
