@@ -196,7 +196,8 @@ order, every phase failing loudly (nonzero exit):
    bbox +-6.5), cropped to 1600x1184, every image a reference view with
    its 4 nearest, D = 256: after one untimed pass, the kernel launches set
    to 0 just before the timed pass and read just after (K4 exactly 8, K5
-   exactly 24, no other kernel), ``volumes`` 8, wall time, phases, peak
+   exactly 24, K6 exactly 8, no other kernel), ``volumes`` 8, wall time,
+   phases, peak
    memory, the (8, 296, 400) maps finite and view 0's within its planes;
    then K4 on view 0's card features (5, 296, 400, 32), D = 256, against
    its plain version on the same card tensors (>= 0.999 of the values
@@ -207,9 +208,17 @@ order, every phase failing loudly (nonzero exit):
    version (within 2**-18 of each output's sum of absolute terms), timed
    beside its bound (``k5_cost``), its plain version, cuDNN's transposed
    conv with the ReLU and skip sum, and the 8 sub-pixel forward convs;
+   then K6 at the U-Nets' entry layer c0 in the four shapes the passes run
+   (``K6_SHAPES``: MVSNet's (32, 256, 296, 400) and CasMVSNet's three
+   stages, seeded) against its plain version (within 2**-18 of each
+   output's sum of absolute terms), timed beside its bound
+   (``conv3d_cost``), its plain version and cuDNN's conv3d with the bias
+   and ReLU, and cuDNN alone at the U-Net's other forward convs (c1-c6,
+   prob) on MVSNet's volume;
 18. the ``casmvsnet`` pass on phase 17's rig with a ``CasMVSNetModel`` at
    its published widths (seeded weights): K4 24 times (16 of them in its
-   per-pixel mode), K5 72 times, no other kernel; 24 volumes; wall time,
+   per-pixel mode), K5 72 times, K6 24 times, no other kernel; 24
+   volumes; wall time,
    phases, peak memory, the (8, 1184, 1600) maps finite and within the
    depth range; then K4 at each stage's size on view 0's card features
    (296x400 planes, 592x800 and 1184x1600 per-pixel around the pass's own
@@ -222,8 +231,8 @@ The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
 (``time_kernels.kernel_rig``, ``time_kernels.time_all``, ``roofline``).
 The last lines are a JSON summary of the passes, the probes, the trace,
 the host store and the evaluation, the kernels' JSON line (times, bounds,
-launches; K3's rows mode counted in phases 11, 14 and 15, K4 and K5 in
-phases 17 and 18's timed passes), and the card's name and
+launches; K3's rows mode counted in phases 11, 14 and 15, K4, K5 and K6
+in phases 17 and 18's timed passes), and the card's name and
 power limit before the final JSON line ``{"ok": true, "device": ...}``.
 Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
@@ -1770,6 +1779,7 @@ def _sharded_pass(group, model, gp, scene):
     from raynet_tpu_torch.inference import RayNetForwardPass
     from raynet_tpu_torch.ops.bp_sweep import bp_sweep
     from raynet_tpu_torch.ops.cost_volume import cost_volume
+    from raynet_tpu_torch.ops.entry_conv3d import entry_conv3d
     from raynet_tpu_torch.ops.planesweep import plane_sweep_scores
     from raynet_tpu_torch.ops.ray_marching import voxel_traversal_flat
     from raynet_tpu_torch.ops.transposed_conv3d import transposed_conv3d
@@ -1780,7 +1790,8 @@ def _sharded_pass(group, model, gp, scene):
                 "voxel_traversal_flat": voxel_traversal_flat,
                 "voxel_argmax_depth": voxel_argmax_depth,
                 "bp_sweep": bp_sweep, "cost_volume": cost_volume,
-                "transposed_conv3d": transposed_conv3d}
+                "transposed_conv3d": transposed_conv3d,
+                "entry_conv3d": entry_conv3d}
     list(RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
                            device=group.device).forward_pass(scene, (0, 2, 1)))
     fp = RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
@@ -2101,15 +2112,15 @@ def phase_mvsnet(check, dev, counters):
     8-image 1600x1200 ring, every image a reference view with its 4
     nearest, D = 256, an ``MVSNetModel`` at its published widths with
     seeded weights: the kernel launches set to 0 just before the timed
-    pass and read just after (K4 once a view, K5 three times, no other
-    kernel), its ``volumes``, wall time, phases and peak memory, the maps'
-    shape and range; then K4 on view 0's card features against its plain
-    version on the same card tensors, each timed, beside its bound; then
-    K5 at each of
-    the U-Net's three upsampling layers (seeded inputs at the pass's
-    shapes) against its plain version, timed beside its bound, the plain
-    version, cuDNN's transposed conv with the ReLU and skip sum (what the
-    pass ran before K5) and the 8 sub-pixel forward convs (a control)."""
+    pass and read just after (K4 once a view, K5 three times, K6 once, no
+    other kernel), its ``volumes``, wall time, phases and peak memory, the
+    maps' shape and range; then K4 on view 0's card features against its
+    plain version on the same card tensors, each timed, beside its bound;
+    then K5 at each of the U-Net's three upsampling layers (seeded inputs
+    at the pass's shapes) against its plain version, timed beside its
+    bound, the plain version, cuDNN's transposed conv with the ReLU and
+    skip sum (what the pass ran before K5) and the 8 sub-pixel forward
+    convs (a control); then K6 (``phase_k6``)."""
     import torch
 
     from raynet_tpu_torch.common.generation_parameters import (
@@ -2156,10 +2167,10 @@ def phase_mvsnet(check, dev, counters):
         "GB; launches %s" % (wall, pixels / wall, pixels, peak_gb, launches))
     for k, v in phases.items():
         log("  phase %-28s %.3f s" % (k, v))
-    per_view = {"cost_volume": 1, "transposed_conv3d": 3}
+    per_view = {"cost_volume": 1, "transposed_conv3d": 3, "entry_conv3d": 1}
     expect = {k: MVS_VIEWS * per_view.get(k, 0) for k in counters}
     check(launches == expect, "mvsnet: K4 launched once a view, K5 three "
-          "times, no other kernel: launches %s" % (launches,))
+          "times, K6 once, no other kernel: launches %s" % (launches,))
     check(fp.volumes == MVS_VIEWS, "mvsnet: %d cost volumes built, one a "
           "view" % fp.volumes)
     P0 = cv.feature_cameras([scene.get_image(0).camera.P], top, left)
@@ -2215,6 +2226,7 @@ def phase_mvsnet(check, dev, counters):
                  "max_abs_err": err, "close_share": close}
     del feats, homs, depths
     out["k5"] = phase_k5(check, dev, (MVS_PLANES, H, W))
+    out["k6"] = phase_k6(check, dev)
     return out
 
 
@@ -2338,13 +2350,138 @@ def phase_k5(check, dev, volume_shape):
     return total
 
 
+# K6's shapes, the U-Nets' entry layers c0: (name, Cin, (D, H, W))
+K6_SHAPES = (("mvsnet", 32, (256, 296, 400)),
+             ("cas_stage1", 32, (48, 296, 400)),
+             ("cas_stage2", 16, (32, 592, 800)),
+             ("cas_stage3", 8, (8, 1184, 1600)))
+# the U-Net's other forward convs at MVSNet's volume: (name, Cin, Cout,
+# stride, the input's downscale from the volume's (D, H, W), ReLU)
+UNET_CONVS = (("c1", 8, 16, 2, 1, True), ("c2", 16, 16, 1, 2, True),
+              ("c3", 16, 32, 2, 2, True), ("c4", 32, 32, 1, 4, True),
+              ("c5", 32, 64, 2, 4, True), ("c6", 64, 64, 1, 8, True),
+              ("prob", 8, 1, 1, 1, False))
+
+
+def conv3d_cost(cin, cout, shape, stride=1):
+    """The work of a 3x3x3 conv of padding 1 on a (cin, *shape) input:
+    2 x 27 x cin x cout operations an output voxel; bytes, the input, the
+    weights and bias read once, the output written once."""
+    from bench_torch import roofline
+
+    out = math.prod((n - 1) // stride + 1 for n in shape)
+    nbytes = 4 * (cin * math.prod(shape) + cout * out + 27 * cin * cout
+                  + cout)
+    return roofline.Cost(nbytes, 2 * 27 * cin * cout * out)
+
+
+def phase_k6(check, dev):
+    """K6 alone at each U-Net entry layer c0 the passes run (MVSNet's and
+    CasMVSNet's three stages; seeded inputs on the card): against its
+    plain version (within 2**-18 of each output's sum of absolute terms,
+    as the card test), timed beside its bound, the plain version and
+    cuDNN's conv3d with the bias and ReLU (what the pass ran before K6);
+    then cuDNN alone at the U-Net's other forward convs (c1-c6, prob) on
+    MVSNet's volume, each beside its bound: the split of the U-Net's
+    forward convs by layer. TF32 off, as the port runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from bench_torch import roofline
+    from raynet_tpu_torch.ops import entry_conv3d as ec
+    from raynet_tpu_torch.tools.time_kernels import time_ms
+
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    for name, cin, shape in K6_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(cin + shape[0])
+        x = torch.relu(torch.randn((1, cin) + shape, generator=g,
+                                   device=dev))
+        w = torch.randn((8, cin, 3, 3, 3), generator=g, device=dev) \
+            * (2.0 / (27 * cin)) ** 0.5
+        b = torch.randn((8,), generator=g, device=dev) * 0.1
+        before = ec.entry_conv3d.launches
+        got = ec.entry_conv3d(x, w, b)
+        launched = ec.entry_conv3d.launches - before
+        want = ec.entry_conv3d_reference(x, w, b)
+        scale = ec.entry_conv3d_reference(x, w.abs(), b.abs())
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / scale).max())
+        del want
+        lib = torch.relu_(F.conv3d(x, w, b, padding=1))
+        lib_rel = float(((got - lib).abs() / scale).max())
+        del lib, scale
+        check(launched == 1 and bool(torch.isfinite(got).all())
+              and rel <= 2.0 ** -18,
+              "K6 %s (%d -> 8, input %s) against its plain version on the "
+              "card: max abs err %.3e, %.3e of the terms' sum (bar 2**-18 = "
+              "%.3e; cuDNN %.3e), launches %d"
+              % (name, cin, shape, err, rel, 2.0 ** -18, lib_rel, launched))
+        del got
+        ms = time_ms(lambda: ec.entry_conv3d(x, w, b))
+        library_ms = time_ms(
+            lambda: torch.relu_(F.conv3d(x, w, b, padding=1)))
+        plain_ms = time_ms(lambda: ec.entry_conv3d_reference(x, w, b),
+                           repeats=1, warmup=0)
+        work = conv3d_cost(cin, 8, shape)
+        bound_ms = 1e3 * roofline.bound_seconds(work)
+        bound_by = roofline.bound_by(work)
+        log("  K6 %s %d -> 8, input %s: %.4f ms a launch (%.1f TFLOP/s), "
+            "plain %.3f ms, cuDNN conv3d + bias + ReLU %.4f ms (%.1f "
+            "TFLOP/s); bound %.4f ms (%s), %.1f%% of it (cuDNN %.1f%%)"
+            % (name, cin, shape, ms, work.ops / ms / 1e9, plain_ms,
+               library_ms, work.ops / library_ms / 1e9, bound_ms, bound_by,
+               100 * bound_ms / ms, 100 * bound_ms / library_ms))
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms,
+                      "max_abs_err": err, "max_rel_err": rel,
+                      "library_rel_err": lib_rel, "input": [cin, *shape]}
+        del x, w, b
+    convs = {}
+    volume = K6_SHAPES[0][2]
+    for name, cin, cout, stride, down, relu in UNET_CONVS:
+        shape = tuple(n // down for n in volume)
+        g = torch.Generator(device=dev).manual_seed(cout)
+        x = torch.relu(torch.randn((1, cin) + shape, generator=g,
+                                   device=dev))
+        w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
+            * (2.0 / (27 * cin)) ** 0.5
+        b = torch.randn((cout,), generator=g, device=dev) * 0.1
+
+        def conv():
+            y = F.conv3d(x, w, b, stride=stride, padding=1)
+            return torch.relu_(y) if relu else y
+
+        ms = time_ms(conv)
+        work = conv3d_cost(cin, cout, shape, stride)
+        bound_ms = 1e3 * roofline.bound_seconds(work)
+        log("  cuDNN %s %d -> %d, stride %d, input %s: %.4f ms (%.1f "
+            "TFLOP/s); bound %.4f ms (%s), %.1f%% of it"
+            % (name, cin, cout, stride, shape, ms, work.ops / ms / 1e9,
+               bound_ms, roofline.bound_by(work), 100 * bound_ms / ms))
+        convs[name] = {"library_ms": ms, "bound_ms": bound_ms,
+                       "gflop": work.ops / 1e9, "input": [cin, *shape]}
+        del x, w, b
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    total.update(bound_by="per shape", max_abs_err=max(
+        r["max_abs_err"] for r in rows.values()), shapes=rows,
+        unet_convs=convs)
+    log("  K6 at the four shapes: %.4f ms, bound %.4f ms, %.1f%% of it; "
+        "cuDNN %.4f ms" % (total["ms"], total["bound_ms"],
+                           100 * total["bound_ms"] / total["ms"],
+                           total["library_ms"]))
+    return total
+
+
 def phase_casmvsnet(check, dev, counters):
     """Phase 18: the ``casmvsnet`` pass on phase 17's 8-image 1600x1200
     ring (cropped to 1600x1184), every image a reference view with its 4
     nearest, a ``CasMVSNetModel`` at its published widths with seeded
     weights: the kernel launches set to 0 just before the timed pass and
     read just after (K4 three times a view, two of them in its per-pixel
-    mode; K5 nine times a view; no other kernel), its ``volumes``, wall
+    mode; K5 nine times a view; K6 three times; no other kernel), its
+    ``volumes``, wall
     time, phases and peak memory, the maps' shape and range; then K4 at
     each stage's size on view 0's card features (stage 1 in the plane
     mode, stages 2 and 3 in the per-pixel mode around the pass's own
@@ -2398,12 +2535,12 @@ def phase_casmvsnet(check, dev, counters):
             wall, pixels / wall, pixels, peak_gb, launches, per_pixel))
     for k, v in phases.items():
         log("  phase %-28s %.3f s" % (k, v))
-    per_view = {"cost_volume": 3, "transposed_conv3d": 9}
+    per_view = {"cost_volume": 3, "transposed_conv3d": 9, "entry_conv3d": 3}
     expect = {k: MVS_VIEWS * per_view.get(k, 0) for k in counters}
     check(launches == expect and per_pixel == 2 * MVS_VIEWS,
           "casmvsnet: K4 three times a view (%d of them per-pixel, 2 a "
-          "view), K5 nine times, no other kernel: launches %s"
-          % (per_pixel, launches))
+          "view), K5 nine times, K6 three times, no other kernel: launches "
+          "%s" % (per_pixel, launches))
     check(fp.volumes == 3 * MVS_VIEWS, "casmvsnet: %d cost volumes built, "
           "three a view" % fp.volumes)
     P0 = cv.feature_cameras([scene.get_image(0).camera.P], top, left)
@@ -2517,6 +2654,7 @@ def main(argv=None):
     from raynet_tpu_torch.ops import (
         cost_volume,
         cuda_build,
+        entry_conv3d,
         transposed_conv3d,
     )
     from raynet_tpu_torch.ops.bp_sweep import (
@@ -3010,7 +3148,8 @@ def main(argv=None):
                 "voxel_argmax_depth": voxel_argmax_depth,
                 "bp_sweep": bp_sweep,
                 "cost_volume": cost_volume.cost_volume,
-                "transposed_conv3d": transposed_conv3d.transposed_conv3d}
+                "transposed_conv3d": transposed_conv3d.transposed_conv3d,
+                "entry_conv3d": entry_conv3d.entry_conv3d}
     # the launches each pass makes on the 2 reference views: one per image
     # and kernel, K2 once per image and sweep; no other kernel
     passes = (
@@ -3342,7 +3481,7 @@ def main(argv=None):
         {"maps": raynet_maps, "wall_s": results["raynet"]["wall_s"]},
         {k: passes[0][2].get(k, 0) for k in counters}, e2e_batch)
     del raynet_maps, e2e_batch
-    # 17. the mvsnet pass, K4 and K5
+    # 17. the mvsnet pass, K4, K5 and K6
     mvsnet = phase_mvsnet(check, dev, counters)
     # 18. the casmvsnet pass and K4's per-pixel mode
     casmvs = phase_casmvsnet(check, dev, counters)
@@ -3432,6 +3571,16 @@ def main(argv=None):
                mvsnet["k5"]["max_abs_err"], mvsnet["k5"],
                subpixel_ms=mvsnet["k5"]["subpixel_ms"],
                layers=mvsnet["k5"]["layers"]),
+        # the entry conv c0 at its four shapes (phase 17), summed; per
+        # shape under "shapes", cuDNN's other U-Net convs under
+        # "unet_convs"
+        kernel("entry_conv3d", "entry_conv3d.cu",
+               "none: new in the port, no TPU counterpart",
+               mvsnet["launches"]["entry_conv3d"]
+               + casmvs["launches"]["entry_conv3d"],
+               mvsnet["k6"]["max_abs_err"], mvsnet["k6"],
+               shapes=mvsnet["k6"]["shapes"],
+               unet_convs=mvsnet["k6"]["unet_convs"]),
     ]
     # strict JSON: a NaN here raises
     print(json.dumps({"bp_sweep_modes": k2, "voxel_depth": k3_depth,

@@ -37,7 +37,10 @@ MVSNet cost volume) within rtol 1e-5, atol 1e-6 of its plain version on
 >= 0.999 of the values, in its plane mode and in its per-pixel mode
 (CasMVSNet's later stages), and the per-pixel mode at a centre of 0 equal
 to the plane mode bit for bit; K5 (the U-Net's transposed convs) within 2**-18
-of each output's sum of absolute terms of its plain version; and the
+of each output's sum of absolute terms of its plain version; K6 (the
+U-Net's entry conv) within 2**-18 of each output's sum of absolute terms
+of the float64 conv3d, bias and ReLU, and equal to itself bit for bit on
+a second run; and the
 MVSNet pass's depths within 1e-3 of a plane interval of the CPU pass's on
 >= 0.999 of the pixels, the CasMVSNet pass's within 5e-3 of its last
 stage's interval (its first two stages' errors carry into the last stage's
@@ -65,6 +68,7 @@ from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
 from raynet_tpu_torch.models.mvsnet import MVSNetModel
 from raynet_tpu_torch.ops import bp_sweep as bp
 from raynet_tpu_torch.ops import cost_volume as cv
+from raynet_tpu_torch.ops import entry_conv3d as ec
 from raynet_tpu_torch.ops import fused
 from raynet_tpu_torch.ops import planesweep as ps
 from raynet_tpu_torch.ops import ray_marching as rm
@@ -1020,16 +1024,91 @@ def test_transposed_conv3d_kernel_rejects_what_it_cannot_take(cuda):
         tc.transposed_conv3d(x.double(), w, b, skip)
 
 
+def _entry_conv_inputs(device, cin, shape, seed=5):
+    """A K6 layer's input (non-negative, as a variance volume), folded-like
+    weight and bias, drawn on the card."""
+    g = torch.Generator(device=device).manual_seed(seed + cin + sum(shape))
+    x = torch.relu(torch.randn((1, cin) + shape, generator=g, device=device))
+    w = torch.randn((8, cin, 3, 3, 3), generator=g, device=device) \
+        * (2.0 / (27 * cin)) ** 0.5
+    b = torch.randn((8,), generator=g, device=device) * 0.1
+    return x, w, b
+
+
+def _exact_planes(x, w, b, lo, hi):
+    """The float64 layer's output planes lo..hi - 1 and the sum of their
+    terms' magnitudes: conv3d of the planes lo - 1 .. hi, a zero plane
+    past either end of the volume."""
+    D = x.shape[2]
+    xs = x[:, :, max(lo - 1, 0):min(hi + 1, D)].double()
+    xs = torch.nn.functional.pad(
+        xs, (0, 0, 0, 0, max(1 - lo, 0), max(hi + 1 - D, 0)))
+    w, b = w.double(), b.double()
+    conv = torch.nn.functional.conv3d
+    exact = torch.relu(conv(xs, w, b, padding=(0, 1, 1)))
+    scale = conv(xs.abs(), w.abs(), b.abs(), padding=(0, 1, 1))
+    return exact, scale
+
+
+@pytest.mark.parametrize("cin, shape", [
+    # c0 of MVSNet and of CasMVSNet's three stages, as the passes run it
+    (32, (256, 296, 400)), (32, (48, 296, 400)), (16, (32, 592, 800)),
+    (8, (8, 1184, 1600)),
+    # off the block's 32 columns and 64 rows, W off a multiple of 4 (the
+    # 4-byte copies), D = 1 and 2 (every output reads a zero plane)
+    (32, (3, 67, 37)), (16, (1, 5, 9)), (8, (2, 9, 33)), (8, (5, 1, 1)),
+    (16, (2, 70, 36)), (8, (3, 130, 100)),
+])
+def test_entry_conv3d_kernel_matches_float64(cuda, cin, shape):
+    """K6 against the float64 conv3d, bias and ReLU: within 2**-18 of each
+    output's sum of absolute terms (|b| + sum |x| |w|). The kernel sums at
+    most 864 products in float32 by fused multiply-adds, each rounding off
+    by at most an ulp (2**-24) of a partial sum no larger than that sum; a
+    tap from the wrong input or weight, or a border read as anything but
+    0, is off by about the whole of it. Checked at the first two, the
+    middle and the last two planes of the published shapes (the float64
+    volume of MVSNet's would take 7.8 GB), at every plane of the others;
+    one launch counted, and a second run equal bit for bit."""
+    x, w, b = _entry_conv_inputs(cuda, cin, shape)
+    before = ec.entry_conv3d.launches
+    got = ec.entry_conv3d(x, w, b)
+    assert ec.entry_conv3d.launches == before + 1
+    assert got.shape == (1, 8) + shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    D = shape[0]
+    spans = ([(0, 2), (D // 2, D // 2 + 1), (D - 2, D)] if D > 8
+             else [(0, D)])
+    for lo, hi in spans:
+        exact, scale = _exact_planes(x, w, b, lo, hi)
+        err = (got[:, :, lo:hi].double() - exact).abs()
+        assert (err <= 2.0 ** -18 * scale).all(), (lo, hi)
+    assert torch.equal(ec.entry_conv3d(x, w, b), got)
+
+
+def test_entry_conv3d_kernel_rejects_what_it_cannot_take(cuda):
+    x, w, b = _entry_conv_inputs(cuda, 16, (2, 4, 6))
+    with pytest.raises(ValueError, match="contiguous"):
+        ec.entry_conv3d(x.transpose(3, 4).contiguous().transpose(3, 4), w, b)
+    with pytest.raises(ValueError, match="no kernel for 16 -> 16"):
+        ec.entry_conv3d(x, torch.cat([w, w]), torch.cat([b, b]))
+    with pytest.raises(ValueError, match="float32"):
+        ec.entry_conv3d(x.double(), w, b)
+    with pytest.raises(ValueError, match="weight is on cpu"):
+        ec.entry_conv3d(x, w.cpu(), b)
+
+
 def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
     """The MVSNet pass on a 128x96 ring rig (D = 16): one K4 launch, one
-    volume and three K5 launches a view, the folded U-Net's depths within
-    1e-3 of a plane interval of the CPU pass's (cuDNN's and the CPU's
-    convolutions sum in other orders) on >= 0.999 of the pixels."""
+    volume, one K6 launch and three K5 launches a view, the folded U-Net's
+    depths within 1e-3 of a plane interval of the CPU pass's (cuDNN's and
+    the CPU's convolutions sum in other orders) on >= 0.999 of the
+    pixels."""
     scene = RingScene(4, 96, 128, 220.0, angle_origin=1, bbox_half=6.5)
     gp = type("GP", (), dict(depth_planes=16, neighbors=2))()
     maps, volumes = {}, {}
     before = cv.cost_volume.launches
     before_k5 = tc.transposed_conv3d.launches
+    before_k6 = ec.entry_conv3d.launches
     for dev in (cuda, torch.device("cpu")):
         model = MVSNetModel(seed=3, device=dev)
         fp = MVSNetForwardPass(model, gp, None, scene.image_shape,
@@ -1038,6 +1117,7 @@ def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
         volumes[dev.type] = fp.volumes
     assert cv.cost_volume.launches == before + 3
     assert tc.transposed_conv3d.launches == before_k5 + 9
+    assert ec.entry_conv3d.launches == before_k6 + 3
     assert volumes == {"cuda": 3, "cpu": 3}
     assert maps["cuda"].shape == (3, 24, 32)
     P = cv.feature_cameras([scene.get_image(0).camera.P], 0, 0)
@@ -1048,14 +1128,15 @@ def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
 
 def test_casmvsnet_pass_on_the_card_matches_the_cpu(cuda):
     """The CasMVSNet pass on a 128x96 ring rig: K4 three times a view, the
-    later two in the per-pixel mode, nine K5 launches a view (three U-Nets
-    of three), three volumes a view, and the last stage's depths within
-    5e-3 of its interval of the CPU pass's on >= 0.999 of the pixels."""
+    later two in the per-pixel mode, nine K5 launches and three K6 a view
+    (three U-Nets of three and of one), three volumes a view, and the last
+    stage's depths within 5e-3 of its interval of the CPU pass's on >=
+    0.999 of the pixels."""
     scene = RingScene(4, 96, 128, 220.0, angle_origin=1, bbox_half=6.5)
     gp = type("GP", (), dict(neighbors=2))()
     maps, volumes = {}, {}
     before = (cv.cost_volume.launches, cv.cost_volume.per_pixel_launches,
-              tc.transposed_conv3d.launches)
+              tc.transposed_conv3d.launches, ec.entry_conv3d.launches)
     for dev in (cuda, torch.device("cpu")):
         model = CasMVSNetModel(seed=3, device=dev)
         fp = CasMVSNetForwardPass(model, gp, None, scene.image_shape,
@@ -1063,8 +1144,8 @@ def test_casmvsnet_pass_on_the_card_matches_the_cpu(cuda):
         maps[dev.type] = np.stack(list(fp.forward_pass(scene, (0, 3, 1))))
         volumes[dev.type] = fp.volumes
     assert (cv.cost_volume.launches, cv.cost_volume.per_pixel_launches,
-            tc.transposed_conv3d.launches) == (before[0] + 9, before[1] + 6,
-                                               before[2] + 27)
+            tc.transposed_conv3d.launches, ec.entry_conv3d.launches) == (
+        before[0] + 9, before[1] + 6, before[2] + 27, before[3] + 9)
     assert volumes == {"cuda": 9, "cpu": 9}
     assert maps["cuda"].shape == (3, 96, 128)
     P = cv.feature_cameras([scene.get_image(0).camera.P], 0, 0)
