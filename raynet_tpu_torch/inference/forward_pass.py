@@ -43,14 +43,17 @@ its own message store; each image's grid scatter of each sweep is summed
 over the ranks by one all-reduce, and the depth maps are assembled whole
 on every rank.
 
-Each host step of a pass (an image's pad, upload and CNN launches; a
-view's ray indices, their upload and segments; each kernel call; a view's
-depth map, built on the device and queued for the host, and the wait for
-it) is a ``utils.profiling.span`` of a fixed name, a ``record_function``
-range only while a profiler records, nested in its phase or directly in
-the pass, and closed before the pass yields. A pass queues the next
-view's device work (the raynet pass: every view's) before the host waits
-for a map, so that the card is not left idle behind the host's wait.
+Each host step of a pass (the raynet and per-view passes' set-up of a
+call, ``pass.setup``: the scene check, the bbox, every ray's index; an
+image's pad, upload and CNN launches; a view set's feature stack and
+camera uploads; a view's ray indices, their upload and segments; each
+kernel call; a view's depth map, built on the device and queued for the
+host, and the wait for it) is a ``utils.profiling.span`` of a fixed name,
+a ``record_function`` range only while a profiler records, nested in its
+phase or directly in the pass, and closed before the pass yields. A pass
+queues the next view's device work (the raynet pass: every view's) before
+the host waits for a map, so that the card is not left idle behind the
+host's wait.
 
 What the JAX package adds on top of this — beam/band planners, box classes,
 the plan prefetcher and the VMEM retry — exists because Mosaic has no
@@ -235,7 +238,10 @@ class ForwardPass:
 
     def _features_and_cameras(self, scene, ref_idx):
         """(features (V, Hf, Wf, F), P (V, 3, 4), P_pinv (4, 3),
-        center (3,)) of a reference view set, cached."""
+        center (3,)) of a reference view set, cached. A view set built
+        anew opens ``views.stack`` (the stack of its cached feature maps)
+        and ``views.cameras`` (the cameras' pageable uploads), each after
+        every image's features."""
         if ref_idx in self._feature_cache:
             self._feature_cache.move_to_end(ref_idx)
         else:
@@ -243,18 +249,19 @@ class ForwardPass:
                 ref_idx, self._generation_params.neighbors
             )
             images = [scene.get_image(j) for j in view_idxs]
-            features = torch.stack(
-                [self._image_features(scene, j) for j in view_idxs]
-            )
+            features = [self._image_features(scene, j) for j in view_idxs]
+            with span("views.stack"):
+                features = torch.stack(features)
 
             def f32(a):
                 return torch.as_tensor(
                     np.asarray(a, np.float32), device=self.device
                 )
 
-            P = f32(np.stack([im.camera.P for im in images]))
-            P_pinv = f32(images[0].camera.P_pinv)
-            center = f32(images[0].camera.center[:3, 0])
+            with span("views.cameras"):
+                P = f32(np.stack([im.camera.P for im in images]))
+                P_pinv = f32(images[0].camera.P_pinv)
+                center = f32(images[0].camera.center[:3, 0])
             self._feature_cache[ref_idx] = (features, P, P_pinv, center)
             while len(self._feature_cache) > self.max_cached_view_sets:
                 self._feature_cache.popitem(last=False)
@@ -350,10 +357,11 @@ class _PerViewDepthPass(ForwardPass):
         ``images_range`` = (start, end, skip). Each view's work is queued
         before the host waits for the previous view's map."""
         start, end, skip = _check_images_range(images_range)
-        self._check_scene(scene)
-        H, W = scene.image_shape
-        bbox = self._bbox(scene)
-        maps = _DepthMaps(self.device, H, W, self._every_ray(H, W))
+        with span("pass.setup"):
+            self._check_scene(scene)
+            H, W = scene.image_shape
+            bbox = self._bbox(scene)
+            maps = _DepthMaps(self.device, H, W, self._every_ray(H, W))
         pending = None
         for ref_idx in range(start, end, skip):
             with span("rays.index"):
@@ -453,11 +461,13 @@ class RayNetForwardPass(ForwardPass):
         ``images_range`` = (start, end, skip). Every view's depth sweep
         and map are queued before the host waits for the first map."""
         start, end, skip = _check_images_range(images_range)
-        self._check_scene(scene)
-        H, W = scene.image_shape
-        maps = _DepthMaps(self.device, H, W, self._every_ray(H, W))
+        with span("pass.setup"):
+            self._check_scene(scene)
+            H, W = scene.image_shape
+            bbox = self._bbox(scene)
+            maps = _DepthMaps(self.device, H, W, self._every_ray(H, W))
         ref_indices = list(range(start, end, skip))
-        depths, idxs = self._sweeps(scene, ref_indices, maps)
+        depths, idxs = self._sweeps(scene, ref_indices, maps, bbox)
         pending = []
         for i in ref_indices:
             with span("depth.scatter"):
@@ -466,9 +476,10 @@ class RayNetForwardPass(ForwardPass):
             yield self._wait_map(maps, queued,
                                  overlapped=k + 1 < len(pending))
 
-    def _sweeps(self, scene, ref_indices, maps):
+    def _sweeps(self, scene, ref_indices, maps, bbox):
         """The plane sweep, the BP sweeps and the depth sweep of the views
-        ``ref_indices``: ({view: depths (rows,) float32 on the device},
+        ``ref_indices`` in the scene's ``bbox`` (on the device):
+        ({view: depths (rows,) float32 on the device},
         {view: its ray indices as ``maps.rays`` gave them}), every sweep
         queued and none waited for. The message store, its spill files
         included, is gone when this returns or raises."""
@@ -481,7 +492,6 @@ class RayNetForwardPass(ForwardPass):
         M = int(gp.max_number_of_marched_voxels)
         D = int(gp.depth_planes)
         dev = self.device
-        bbox = self._bbox(scene)
         ray_idxs = {}
         for i in ref_indices:
             with span("rays.index"):
@@ -718,8 +728,10 @@ class MVSNetForwardPass(ForwardPass):
     a map. ``depth_planes`` must be a multiple of 8; ``rays_batch`` is
     not read.
 
-    Phases "Cost volume", "Cost regularization" and "Depth regression",
-    each one span (``mvs.cost_volume``, ``mvs.regularize``,
+    Phases "Cost volume" (K4's launch), "Cost regularization" (the U-Net's
+    launches; while a profiler records, each of its 11 layers also a
+    phase of its own, ``unet.conv0`` ... ``unet.prob``, by
+    ``PhaseTimer.layer``) and "Depth regression" (with its span
     ``mvs.regress``); ``mvs.planes`` the host's planes and homographies
     and their upload. ``volumes`` counts the cost volumes built over the
     object's calls.
@@ -772,13 +784,12 @@ class MVSNetForwardPass(ForwardPass):
                                     for j in views])
             with span("mvs.planes"):
                 depths, homs = self._planes(scene, views, D)
-            with self.timer.phase("Cost volume"), span("mvs.cost_volume"):
+            with self.timer.phase("Cost volume"):
                 volume = cost_volume.cost_volume(features, homs, depths)
             self.volumes += 1
             del features
-            with self.timer.phase("Cost regularization"), \
-                    span("mvs.regularize"):
-                logits = self._model.regularize(volume)
+            with self.timer.phase("Cost regularization"):
+                logits = self._model.regularize(volume, timer=self.timer)
             del volume
             with self.timer.phase("Depth regression"), span("mvs.regress"):
                 depth = mvsnet.soft_argmin(logits, depths.to(torch.float32))
@@ -814,8 +825,8 @@ class CasMVSNetForwardPass(MVSNetForwardPass):
     W) map of camera z of the crop, goes to the host as the MVSNet pass's
     does; ``depth_planes`` and ``rays_batch`` are not read.
 
-    Spans and phases are the MVSNet pass's, once a stage, and
-    ``cas.hypotheses`` the centre depth and the hypotheses of a later
+    Spans, phases and layer timers are the MVSNet pass's, once a stage,
+    and ``cas.hypotheses`` the centre depth and the hypotheses of a later
     stage; the phase "Fine regularization" nests in "Cost regularization"
     around the last stage's U-Net. ``volumes`` counts the cost volumes
     built over the object's calls, 3 a view. ``stage_depths`` gives the
@@ -871,16 +882,16 @@ class CasMVSNetForwardPass(MVSNetForwardPass):
                     centre = casmvsnet.centre_depth(depth, shape, stage)
                     hypotheses = centre.to(torch.float64) \
                         + depths[:, None, None]
-            with self.timer.phase("Cost volume"), span("mvs.cost_volume"):
+            with self.timer.phase("Cost volume"):
                 volume = cost_volume.cost_volume(features, homs, depths,
                                                  centre)
             self.volumes += 1
             del features
             fine = (self.timer.phase("Fine regularization")
                     if stage == last else contextlib.nullcontext())
-            with self.timer.phase("Cost regularization"), \
-                    span("mvs.regularize"), fine:
-                logits = self._model.regularize(volume, stage)
+            with self.timer.phase("Cost regularization"), fine:
+                logits = self._model.regularize(volume, stage,
+                                                timer=self.timer)
             del volume
             with self.timer.phase("Depth regression"), span("mvs.regress"):
                 depth = mvsnet.soft_argmin(logits,

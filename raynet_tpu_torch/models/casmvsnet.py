@@ -211,10 +211,11 @@ class CasMVSNetModel:
                 for m in fpn(x, self._folded()[0])]
 
     @torch.no_grad()
-    def regularize(self, volume, stage):
+    def regularize(self, volume, stage, timer=None):
         """(1, 1, D, H, W) logits of stage ``stage``'s (1, C, D, H, W) cost
-        volume; D, H and W multiples of 8."""
+        volume; D, H and W multiples of 8; ``timer`` times each layer
+        (``mvsnet.unet``)."""
         layers = self._folded()[1][stage]
         self.folded_layers += len(layers) - 1
-        return unet(volume, layers)
+        return unet(volume, layers, timer)
 

@@ -133,12 +133,32 @@ class CostRegNet(nn.Module):
         return unet(x, self.stages())
 
 
-def unet(x, layer):
+# the U-Net's layers in ``stages()`` order under MVSNet_pytorch's module
+# names: the labels of their timers
+UNET_LABELS = tuple("unet." + name for name in (
+    "conv0", "conv1", "conv2", "conv3", "conv4", "conv5", "conv6", "conv7",
+    "conv9", "conv11", "prob"))
+
+
+def _timed(timer, label, call):
+    def timed(*args):
+        with timer.layer(label):
+            return call(*args)
+
+    return timed
+
+
+def unet(x, layer, timer=None):
     """The U-Net's wiring over ``layer``, its 11 layers in ``stages()``
     order as callables: (1, 1, D, H, W) logits of a (1, 32, D, H, W) cost
     volume. The three upsampling layers (7-9) take the skip too, ``(x,
     skip)``, and return their output plus the skip, made in place (the
-    modules in their output, the folded layers over the skip)."""
+    modules in their output, the folded layers over the skip). With a
+    ``utils.profiling.PhaseTimer``, each layer runs under its
+    ``timer.layer`` of ``UNET_LABELS``."""
+    if timer is not None:
+        layer = [_timed(timer, label, call)
+                 for label, call in zip(UNET_LABELS, layer)]
     c0 = layer[0](x)
     del x
     c2 = layer[2](layer[1](c0))
@@ -298,9 +318,9 @@ class MVSNetModel:
         return x.permute(0, 2, 3, 1).contiguous()
 
     @torch.no_grad()
-    def regularize(self, volume):
+    def regularize(self, volume, timer=None):
         """(1, 1, D, H, W) plane logits of a (1, 32, D, H, W) cost volume;
-        D, H and W multiples of 8."""
+        D, H and W multiples of 8; ``timer`` times each layer (``unet``)."""
         layers = self._folded()[1]
         self.folded_layers += len(layers) - 1
-        return unet(volume, layers)
+        return unet(volume, layers, timer)

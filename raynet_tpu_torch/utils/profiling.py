@@ -13,6 +13,10 @@ trace puts on the clock of the device's kernels and copies; otherwise one
 shared null context that records nothing. Every phase opens its range
 through it, so an untraced pass opens no range at all.
 
+``PhaseTimer.layer(label)`` times one layer of a network inside a phase:
+while a profiler records it is a phase of that label, else the same null
+context, so an untraced pass creates no event and no count for it.
+
 ``trace(log_dir)`` is the counterpart of the reference's ``jax.profiler``
 hook: it writes a Chrome trace (``<log_dir>/trace.json``) that
 ``read_trace``, ``device_intervals`` and ``device_busy_share`` read back.
@@ -77,6 +81,13 @@ class PhaseTimer:
             end.record(stream)
             self._pending.append((label, start, end))
             self.add(label, 0.0)  # the count now, the time when read
+
+    def layer(self, label):
+        """A phase named ``label`` while a ``torch.profiler`` records, else
+        the shared null context: no range, no event, no count."""
+        if torch.autograd._profiler_enabled():
+            return self.phase(label)
+        return _UNTRACED
 
     def add(self, label, dt):
         """Record an externally measured duration."""

@@ -44,8 +44,12 @@ a second run; and the
 MVSNet pass's depths within 1e-3 of a plane interval of the CPU pass's on
 >= 0.999 of the pixels, the CasMVSNet pass's within 5e-3 of its last
 stage's interval (its first two stages' errors carry into the last stage's
-hypotheses, see ``tests/test_torch_casmvsnet.py``).
+hypotheses, see ``tests/test_torch_casmvsnet.py``); in a traced pass of
+either at the cells' widths, each volume's 11 U-Net layer timers within 3%
+of its "Cost regularization" phase, and the entry conv's timers within 10%
+of K6's device time in the same trace.
 """
+import contextlib
 import time
 import warnings
 
@@ -65,7 +69,7 @@ from raynet_tpu_torch.inference import (
 from raynet_tpu_torch.models import casmvsnet
 from raynet_tpu_torch.models.casmvsnet import CasMVSNetModel
 from raynet_tpu_torch.models.feature_extractor import FeatureExtractor
-from raynet_tpu_torch.models.mvsnet import MVSNetModel
+from raynet_tpu_torch.models.mvsnet import UNET_LABELS, MVSNetModel
 from raynet_tpu_torch.ops import bp_sweep as bp
 from raynet_tpu_torch.ops import cost_volume as cv
 from raynet_tpu_torch.ops import entry_conv3d as ec
@@ -1153,3 +1157,65 @@ def test_casmvsnet_pass_on_the_card_matches_the_cpu(cuda):
     interval = (far - near) / casmvsnet.NUM_DEPTH
     gap = np.abs(maps["cuda"] - maps["cpu"]) / interval
     assert np.mean(gap <= 5e-3) >= 0.999
+
+
+class _VolumeTimers:
+    """Stands in for a pass's ``PhaseTimer``: each "Cost regularization"
+    phase, with the phases and layer timers inside it, goes to a
+    ``PhaseTimer`` of its own, one a volume (``volumes``); every other
+    phase to ``rest``."""
+
+    def __init__(self, device):
+        self.rest = profiling.PhaseTimer(device)
+        self.volumes = []
+        self._inside = None
+
+    @contextlib.contextmanager
+    def phase(self, label):
+        if label == "Cost regularization":
+            self._inside = profiling.PhaseTimer(self.rest.device)
+            self.volumes.append(self._inside)
+            with self._inside.phase(label):
+                yield
+            self._inside = None
+        else:
+            with (self._inside or self.rest).phase(label):
+                yield
+
+    def layer(self, label):
+        return self._inside.layer(label)
+
+
+@pytest.mark.parametrize("cls, model_cls, volumes", [
+    (MVSNetForwardPass, MVSNetModel, 1),
+    (CasMVSNetForwardPass, CasMVSNetModel, 3)], ids=["mvsnet", "casmvsnet"])
+def test_unet_layer_timers_sum_to_their_phase(cuda, cls, model_cls, volumes,
+                                              tmp_path):
+    """A traced pass of one reference view at the cells' widths (1600x1200,
+    4 neighbours, D 256 in MVSNet): each volume's 11 layer timers, once
+    each, sum to within 3% of its "Cost regularization" phase, and the
+    entry conv's timers to within 10% of K6's device time in the trace."""
+    scene = RingScene(5, 1200, 1600, 2750.0, angle_origin=2, bbox_half=6.5)
+    gp = type("GP", (), dict(depth_planes=256, neighbors=4))()
+    model = model_cls(seed=3, device=cuda)
+    for traced in (False, True):  # the first pass builds and warms up
+        fp = cls(model, gp, None, scene.image_shape, device=cuda)
+        fp.timer = _VolumeTimers(cuda)
+        trace = profiling.trace(str(tmp_path)) if traced \
+            else contextlib.nullcontext()
+        with trace:
+            maps = list(fp.forward_pass(scene, (2, 3, 1)))
+            torch.cuda.synchronize()
+    assert len(maps) == 1 and len(fp.timer.volumes) == volumes
+    conv0 = 0.0
+    for timer in fp.timer.volumes:
+        assert all(timer.counts[label] == 1 for label in UNET_LABELS)
+        totals = timer.totals
+        layers = sum(totals[label] for label in UNET_LABELS)
+        assert layers == pytest.approx(totals["Cost regularization"],
+                                       rel=0.03)
+        conv0 += totals["unet.conv0"]
+    events = profiling.read_trace(str(tmp_path / profiling.TRACE_NAME))
+    k6 = sum(e - s for name, s, e in profiling.device_intervals(events)
+             if "entry_conv3d_kernel" in name) * 1e-6
+    assert conv0 == pytest.approx(k6, rel=0.10)
