@@ -196,7 +196,8 @@ order, every phase failing loudly (nonzero exit):
    bbox +-6.5), cropped to 1600x1184, every image a reference view with
    its 4 nearest, D = 256: after one untimed pass, the kernel launches set
    to 0 just before the timed pass and read just after (K4 exactly 8, K5
-   exactly 24, K6 exactly 8, no other kernel), ``volumes`` 8, wall time,
+   exactly 24, K6 exactly 8, K7 exactly 8, no other kernel), ``volumes`` 8,
+   wall time,
    phases, peak
    memory, the (8, 296, 400) maps finite and view 0's within its planes;
    then K4 on view 0's card features (5, 296, 400, 32), D = 256, against
@@ -210,14 +211,18 @@ order, every phase failing loudly (nonzero exit):
    conv with the ReLU and skip sum, and the 8 sub-pixel forward convs;
    then K6 at the U-Nets' entry layer c0 in the four shapes the passes run
    (``K6_SHAPES``: MVSNet's (32, 256, 296, 400) and CasMVSNet's three
-   stages, seeded) against its plain version (within 2**-18 of each
-   output's sum of absolute terms), timed beside its bound
+   stages, seeded) and K7 at their prob layer in the same four
+   (``K7_SHAPES``: (8, D, H, W), MVSNet's with its bias, CasMVSNet's
+   without), each by ``_conv_kernel_phase``: against its plain version over
+   the whole volume and the float64 conv3d at seven planes (within 2**-18
+   of each output's sum of absolute terms), timed beside its bound
    (``conv3d_cost``), its plain version and cuDNN's conv3d with the bias
-   and ReLU, and cuDNN alone at the U-Net's other forward convs (c1-c6,
-   prob) on MVSNet's volume;
+   (and K6's ReLU), what the pass ran before; then cuDNN alone at the
+   U-Net's other forward convs (c1-c6, prob) on MVSNet's volume;
 18. the ``casmvsnet`` pass on phase 17's rig with a ``CasMVSNetModel`` at
    its published widths (seeded weights): K4 24 times (16 of them in its
-   per-pixel mode), K5 72 times, K6 24 times, no other kernel; 24
+   per-pixel mode), K5 72 times, K6 24 times, K7 24 times, no other
+   kernel; 24
    volumes; wall time,
    phases, peak memory, the (8, 1184, 1600) maps finite and within the
    depth range; then K4 at each stage's size on view 0's card features
@@ -231,8 +236,8 @@ The rig, the kernel times and the bounds are ``raynet_tpu_torch.tools``'
 (``time_kernels.kernel_rig``, ``time_kernels.time_all``, ``roofline``).
 The last lines are a JSON summary of the passes, the probes, the trace,
 the host store and the evaluation, the kernels' JSON line (times, bounds,
-launches; K3's rows mode counted in phases 11, 14 and 15, K4, K5 and K6
-in phases 17 and 18's timed passes), and the card's name and
+launches; K3's rows mode counted in phases 11, 14 and 15, K4, K5, K6 and
+K7 in phases 17 and 18's timed passes), and the card's name and
 power limit before the final JSON line ``{"ok": true, "device": ...}``.
 Without a CUDA device, or
 without the repository around it, the script exits nonzero and prints no
@@ -1781,6 +1786,7 @@ def _sharded_pass(group, model, gp, scene):
     from raynet_tpu_torch.ops.cost_volume import cost_volume
     from raynet_tpu_torch.ops.entry_conv3d import entry_conv3d
     from raynet_tpu_torch.ops.planesweep import plane_sweep_scores
+    from raynet_tpu_torch.ops.prob_conv3d import prob_conv3d
     from raynet_tpu_torch.ops.ray_marching import voxel_traversal_flat
     from raynet_tpu_torch.ops.transposed_conv3d import transposed_conv3d
     from raynet_tpu_torch.ops.voxel_depth import voxel_argmax_depth
@@ -1791,7 +1797,7 @@ def _sharded_pass(group, model, gp, scene):
                 "voxel_argmax_depth": voxel_argmax_depth,
                 "bp_sweep": bp_sweep, "cost_volume": cost_volume,
                 "transposed_conv3d": transposed_conv3d,
-                "entry_conv3d": entry_conv3d}
+                "entry_conv3d": entry_conv3d, "prob_conv3d": prob_conv3d}
     list(RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
                            device=group.device).forward_pass(scene, (0, 2, 1)))
     fp = RayNetForwardPass(model, gp, None, scene.image_shape, N_RAYS,
@@ -2112,15 +2118,16 @@ def phase_mvsnet(check, dev, counters):
     8-image 1600x1200 ring, every image a reference view with its 4
     nearest, D = 256, an ``MVSNetModel`` at its published widths with
     seeded weights: the kernel launches set to 0 just before the timed
-    pass and read just after (K4 once a view, K5 three times, K6 once, no
-    other kernel), its ``volumes``, wall time, phases and peak memory, the
+    pass and read just after (K4 once a view, K5 three times, K6 once, K7
+    once, no other kernel), its ``volumes``, wall time, phases and peak
+    memory, the
     maps' shape and range; then K4 on view 0's card features against its
     plain version on the same card tensors, each timed, beside its bound;
     then K5 at each of the U-Net's three upsampling layers (seeded inputs
     at the pass's shapes) against its plain version, timed beside its
     bound, the plain version, cuDNN's transposed conv with the ReLU and
     skip sum (what the pass ran before K5) and the 8 sub-pixel forward
-    convs (a control); then K6 (``phase_k6``)."""
+    convs (a control); then K6 (``phase_k6``) and K7 (``phase_k7``)."""
     import torch
 
     from raynet_tpu_torch.common.generation_parameters import (
@@ -2167,10 +2174,12 @@ def phase_mvsnet(check, dev, counters):
         "GB; launches %s" % (wall, pixels / wall, pixels, peak_gb, launches))
     for k, v in phases.items():
         log("  phase %-28s %.3f s" % (k, v))
-    per_view = {"cost_volume": 1, "transposed_conv3d": 3, "entry_conv3d": 1}
+    per_view = {"cost_volume": 1, "transposed_conv3d": 3, "entry_conv3d": 1,
+                "prob_conv3d": 1}
     expect = {k: MVS_VIEWS * per_view.get(k, 0) for k in counters}
     check(launches == expect, "mvsnet: K4 launched once a view, K5 three "
-          "times, K6 once, no other kernel: launches %s" % (launches,))
+          "times, K6 once, K7 once, no other kernel: launches %s"
+          % (launches,))
     check(fp.volumes == MVS_VIEWS, "mvsnet: %d cost volumes built, one a "
           "view" % fp.volumes)
     P0 = cv.feature_cameras([scene.get_image(0).camera.P], top, left)
@@ -2227,6 +2236,7 @@ def phase_mvsnet(check, dev, counters):
     del feats, homs, depths
     out["k5"] = phase_k5(check, dev, (MVS_PLANES, H, W))
     out["k6"] = phase_k6(check, dev)
+    out["k7"] = phase_k7(check, dev)
     return out
 
 
@@ -2375,15 +2385,124 @@ def conv3d_cost(cin, cout, shape, stride=1):
     return roofline.Cost(nbytes, 2 * 27 * cin * cout * out)
 
 
+def _float64_planes_err(x, w, b, got, relu):
+    """The largest gap of a 3x3x3 conv's output planes (stride 1, padding
+    1) to the float64 conv, as a share of each output's sum of absolute
+    terms, at the first two, the middle three and the last two planes (at
+    every plane of a volume of 8 or fewer): the float64 volume of MVSNet's
+    whole layer would not fit beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    D = x.shape[2]
+    spans = ([(0, 2), (D // 2 - 1, D // 2 + 2), (D - 2, D)] if D > 8
+             else [(0, D)])
+    wd = w.double()
+    bd = None if b is None else b.double()
+    rel = 0.0
+    for lo, hi in spans:
+        xs = x[:, :, max(lo - 1, 0):min(hi + 1, D)].double()
+        xs = F.pad(xs, (0, 0, 0, 0, max(1 - lo, 0), max(hi + 1 - D, 0)))
+        exact = F.conv3d(xs, wd, bd, padding=(0, 1, 1))
+        if relu:
+            exact = torch.relu(exact)
+        scale = F.conv3d(xs.abs(), wd.abs(), None if bd is None else bd.abs(),
+                         padding=(0, 1, 1))
+        rel = max(rel, float(((got[:, :, lo:hi].double() - exact).abs()
+                              / scale).max()))
+    return rel
+
+
+def _conv_kernel_phase(check, dev, tag, op, reference, cases, cout, relu):
+    """A hand-written 3x3x3 conv kernel (stride 1, padding 1) alone at the
+    shapes the passes run, on seeded inputs on the card: against its plain
+    version over the whole volume and against the float64 conv3d at
+    ``_float64_planes_err``'s planes, each within 2**-18 of each output's
+    sum of absolute terms (as the card tests); one launch counted; timed
+    beside its bound (``conv3d_cost``), the plain version and cuDNN's
+    conv3d with the bias (and the ReLU where ``relu``), what the pass ran
+    before the kernel. ``cases`` holds (name, Cin, (D, H, W), with a
+    bias). Returns the rows by name and their totals."""
+    import torch
+    import torch.nn.functional as F
+
+    from bench_torch import roofline
+    from raynet_tpu_torch.tools.time_kernels import time_ms
+
+    torch.backends.cudnn.allow_tf32 = False
+
+    def library(x, w, b):
+        y = F.conv3d(x, w, b, padding=1)
+        return torch.relu_(y) if relu else y
+
+    what = "conv3d + bias" + (" + ReLU" if relu else "")
+    rows = {}
+    for name, cin, shape, with_bias in cases:
+        g = torch.Generator(device=dev).manual_seed(cin + shape[0])
+        x = torch.relu(torch.randn((1, cin) + shape, generator=g,
+                                   device=dev))
+        w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
+            * (2.0 / (27 * cin)) ** 0.5
+        b = torch.randn((cout,), generator=g, device=dev) * 0.1 \
+            if with_bias else None
+        before = op.launches
+        got = op(x, w, b)
+        launched = op.launches - before
+        want = reference(x, w, b)
+        scale = reference(x, w.abs(), None if b is None else b.abs())
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / scale).max())
+        del want
+        lib = library(x, w, b)
+        lib_rel = float(((got - lib).abs() / scale).max())
+        del lib, scale
+        rel64 = _float64_planes_err(x, w, b, got, relu)
+        check(launched == 1 and bool(torch.isfinite(got).all())
+              and rel <= 2.0 ** -18 and rel64 <= 2.0 ** -18,
+              "%s %s (%d -> %d%s, input %s) on the card: against its plain "
+              "version max abs err %.3e, %.3e of the terms' sum over the "
+              "volume, against float64 %.3e at its planes (bar 2**-18 = "
+              "%.3e; cuDNN %.3e), launches %d"
+              % (tag, name, cin, cout, " + bias" if with_bias else "", shape,
+                 err, rel, rel64, 2.0 ** -18, lib_rel, launched))
+        del got
+        ms = time_ms(lambda: op(x, w, b))
+        library_ms = time_ms(lambda: library(x, w, b))
+        plain_ms = time_ms(lambda: reference(x, w, b), repeats=1, warmup=0)
+        work = conv3d_cost(cin, cout, shape)
+        bound_ms = 1e3 * roofline.bound_seconds(work)
+        bound_by = roofline.bound_by(work)
+        log("  %s %s %d -> %d, input %s: %.4f ms a launch (%.1f TFLOP/s, "
+            "%.0f GB/s), plain %.3f ms, cuDNN %s %.4f ms; bound %.4f ms "
+            "(%s), %.1f%% of it (cuDNN %.1f%%)"
+            % (tag, name, cin, cout, shape, ms, work.ops / ms / 1e9,
+               work.nbytes / ms / 1e6, plain_ms, what, library_ms, bound_ms,
+               bound_by, 100 * bound_ms / ms, 100 * bound_ms / library_ms))
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms,
+                      "max_abs_err": err, "max_rel_err": rel,
+                      "max_rel_err_float64": rel64,
+                      "library_rel_err": lib_rel, "input": [cin, *shape],
+                      "bias": with_bias}
+        del x, w, b
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    total.update(bound_by="per shape", max_abs_err=max(
+        r["max_abs_err"] for r in rows.values()), shapes=rows)
+    log("  %s at the %d shapes: %.4f ms, bound %.4f ms, %.1f%% of it; "
+        "cuDNN %.4f ms" % (tag, len(rows), total["ms"], total["bound_ms"],
+                           100 * total["bound_ms"] / total["ms"],
+                           total["library_ms"]))
+    return total
+
+
 def phase_k6(check, dev):
-    """K6 alone at each U-Net entry layer c0 the passes run (MVSNet's and
-    CasMVSNet's three stages; seeded inputs on the card): against its
-    plain version (within 2**-18 of each output's sum of absolute terms,
-    as the card test), timed beside its bound, the plain version and
-    cuDNN's conv3d with the bias and ReLU (what the pass ran before K6);
-    then cuDNN alone at the U-Net's other forward convs (c1-c6, prob) on
-    MVSNet's volume, each beside its bound: the split of the U-Net's
-    forward convs by layer. TF32 off, as the port runs."""
+    """K6 at each U-Net entry layer c0 the passes run (MVSNet's and
+    CasMVSNet's three stages), with its bias and ReLU, by
+    ``_conv_kernel_phase``; then cuDNN alone at the U-Net's other forward
+    convs (c1-c6, prob) on MVSNet's volume, each beside its bound: the
+    split of the U-Net's forward convs by layer. TF32 off, as the port
+    runs."""
     import torch
     import torch.nn.functional as F
 
@@ -2391,52 +2510,10 @@ def phase_k6(check, dev):
     from raynet_tpu_torch.ops import entry_conv3d as ec
     from raynet_tpu_torch.tools.time_kernels import time_ms
 
-    torch.backends.cudnn.allow_tf32 = False
-    rows = {}
-    for name, cin, shape in K6_SHAPES:
-        g = torch.Generator(device=dev).manual_seed(cin + shape[0])
-        x = torch.relu(torch.randn((1, cin) + shape, generator=g,
-                                   device=dev))
-        w = torch.randn((8, cin, 3, 3, 3), generator=g, device=dev) \
-            * (2.0 / (27 * cin)) ** 0.5
-        b = torch.randn((8,), generator=g, device=dev) * 0.1
-        before = ec.entry_conv3d.launches
-        got = ec.entry_conv3d(x, w, b)
-        launched = ec.entry_conv3d.launches - before
-        want = ec.entry_conv3d_reference(x, w, b)
-        scale = ec.entry_conv3d_reference(x, w.abs(), b.abs())
-        err = float((got - want).abs().max())
-        rel = float(((got - want).abs() / scale).max())
-        del want
-        lib = torch.relu_(F.conv3d(x, w, b, padding=1))
-        lib_rel = float(((got - lib).abs() / scale).max())
-        del lib, scale
-        check(launched == 1 and bool(torch.isfinite(got).all())
-              and rel <= 2.0 ** -18,
-              "K6 %s (%d -> 8, input %s) against its plain version on the "
-              "card: max abs err %.3e, %.3e of the terms' sum (bar 2**-18 = "
-              "%.3e; cuDNN %.3e), launches %d"
-              % (name, cin, shape, err, rel, 2.0 ** -18, lib_rel, launched))
-        del got
-        ms = time_ms(lambda: ec.entry_conv3d(x, w, b))
-        library_ms = time_ms(
-            lambda: torch.relu_(F.conv3d(x, w, b, padding=1)))
-        plain_ms = time_ms(lambda: ec.entry_conv3d_reference(x, w, b),
-                           repeats=1, warmup=0)
-        work = conv3d_cost(cin, 8, shape)
-        bound_ms = 1e3 * roofline.bound_seconds(work)
-        bound_by = roofline.bound_by(work)
-        log("  K6 %s %d -> 8, input %s: %.4f ms a launch (%.1f TFLOP/s), "
-            "plain %.3f ms, cuDNN conv3d + bias + ReLU %.4f ms (%.1f "
-            "TFLOP/s); bound %.4f ms (%s), %.1f%% of it (cuDNN %.1f%%)"
-            % (name, cin, shape, ms, work.ops / ms / 1e9, plain_ms,
-               library_ms, work.ops / library_ms / 1e9, bound_ms, bound_by,
-               100 * bound_ms / ms, 100 * bound_ms / library_ms))
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms,
-                      "max_abs_err": err, "max_rel_err": rel,
-                      "library_rel_err": lib_rel, "input": [cin, *shape]}
-        del x, w, b
+    total = _conv_kernel_phase(
+        check, dev, "K6", ec.entry_conv3d, ec.entry_conv3d_reference,
+        [(name, cin, shape, True) for name, cin, shape in K6_SHAPES],
+        cout=8, relu=True)
     convs = {}
     volume = K6_SHAPES[0][2]
     for name, cin, cout, stride, down, relu in UNET_CONVS:
@@ -2462,16 +2539,26 @@ def phase_k6(check, dev):
         convs[name] = {"library_ms": ms, "bound_ms": bound_ms,
                        "gflop": work.ops / 1e9, "input": [cin, *shape]}
         del x, w, b
-    total = {k: sum(r[k] for r in rows.values())
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    total.update(bound_by="per shape", max_abs_err=max(
-        r["max_abs_err"] for r in rows.values()), shapes=rows,
-        unet_convs=convs)
-    log("  K6 at the four shapes: %.4f ms, bound %.4f ms, %.1f%% of it; "
-        "cuDNN %.4f ms" % (total["ms"], total["bound_ms"],
-                           100 * total["bound_ms"] / total["ms"],
-                           total["library_ms"]))
+    total["unet_convs"] = convs
     return total
+
+
+# K7's shapes, the U-Nets' prob layers: (name, (D, H, W), with a bias)
+K7_SHAPES = tuple((name, shape, name == "mvsnet")
+                  for name, _, shape in K6_SHAPES)
+
+
+def phase_k7(check, dev):
+    """K7 at each U-Net prob layer the passes run (MVSNet's with its bias
+    and CasMVSNet's three stages without), by ``_conv_kernel_phase``: no
+    ReLU, cuDNN's conv3d with the bias what the pass ran before K7. TF32
+    off, as the port runs."""
+    from raynet_tpu_torch.ops import prob_conv3d as pc
+
+    return _conv_kernel_phase(
+        check, dev, "K7", pc.prob_conv3d, pc.prob_conv3d_reference,
+        [(name, 8, shape, bias) for name, shape, bias in K7_SHAPES],
+        cout=1, relu=False)
 
 
 def phase_casmvsnet(check, dev, counters):
@@ -2480,7 +2567,8 @@ def phase_casmvsnet(check, dev, counters):
     nearest, a ``CasMVSNetModel`` at its published widths with seeded
     weights: the kernel launches set to 0 just before the timed pass and
     read just after (K4 three times a view, two of them in its per-pixel
-    mode; K5 nine times a view; K6 three times; no other kernel), its
+    mode; K5 nine times a view; K6 three times; K7 three times; no other
+    kernel), its
     ``volumes``, wall
     time, phases and peak memory, the maps' shape and range; then K4 at
     each stage's size on view 0's card features (stage 1 in the plane
@@ -2535,12 +2623,13 @@ def phase_casmvsnet(check, dev, counters):
             wall, pixels / wall, pixels, peak_gb, launches, per_pixel))
     for k, v in phases.items():
         log("  phase %-28s %.3f s" % (k, v))
-    per_view = {"cost_volume": 3, "transposed_conv3d": 9, "entry_conv3d": 3}
+    per_view = {"cost_volume": 3, "transposed_conv3d": 9, "entry_conv3d": 3,
+                "prob_conv3d": 3}
     expect = {k: MVS_VIEWS * per_view.get(k, 0) for k in counters}
     check(launches == expect and per_pixel == 2 * MVS_VIEWS,
           "casmvsnet: K4 three times a view (%d of them per-pixel, 2 a "
-          "view), K5 nine times, K6 three times, no other kernel: launches "
-          "%s" % (per_pixel, launches))
+          "view), K5 nine times, K6 three times, K7 three times, no other "
+          "kernel: launches %s" % (per_pixel, launches))
     check(fp.volumes == 3 * MVS_VIEWS, "casmvsnet: %d cost volumes built, "
           "three a view" % fp.volumes)
     P0 = cv.feature_cameras([scene.get_image(0).camera.P], top, left)
@@ -2655,6 +2744,7 @@ def main(argv=None):
         cost_volume,
         cuda_build,
         entry_conv3d,
+        prob_conv3d,
         transposed_conv3d,
     )
     from raynet_tpu_torch.ops.bp_sweep import (
@@ -3149,7 +3239,8 @@ def main(argv=None):
                 "bp_sweep": bp_sweep,
                 "cost_volume": cost_volume.cost_volume,
                 "transposed_conv3d": transposed_conv3d.transposed_conv3d,
-                "entry_conv3d": entry_conv3d.entry_conv3d}
+                "entry_conv3d": entry_conv3d.entry_conv3d,
+                "prob_conv3d": prob_conv3d.prob_conv3d}
     # the launches each pass makes on the 2 reference views: one per image
     # and kernel, K2 once per image and sweep; no other kernel
     passes = (
@@ -3481,7 +3572,7 @@ def main(argv=None):
         {"maps": raynet_maps, "wall_s": results["raynet"]["wall_s"]},
         {k: passes[0][2].get(k, 0) for k in counters}, e2e_batch)
     del raynet_maps, e2e_batch
-    # 17. the mvsnet pass, K4, K5 and K6
+    # 17. the mvsnet pass, K4, K5, K6 and K7
     mvsnet = phase_mvsnet(check, dev, counters)
     # 18. the casmvsnet pass and K4's per-pixel mode
     casmvs = phase_casmvsnet(check, dev, counters)
@@ -3581,6 +3672,14 @@ def main(argv=None):
                mvsnet["k6"]["max_abs_err"], mvsnet["k6"],
                shapes=mvsnet["k6"]["shapes"],
                unet_convs=mvsnet["k6"]["unet_convs"]),
+        # the prob conv at its four shapes (phase 17), summed; per shape
+        # under "shapes"
+        kernel("prob_conv3d", "prob_conv3d.cu",
+               "none: new in the port, no TPU counterpart",
+               mvsnet["launches"]["prob_conv3d"]
+               + casmvs["launches"]["prob_conv3d"],
+               mvsnet["k7"]["max_abs_err"], mvsnet["k7"],
+               shapes=mvsnet["k7"]["shapes"]),
     ]
     # strict JSON: a NaN here raises
     print(json.dumps({"bp_sweep_modes": k2, "voxel_depth": k3_depth,

@@ -40,8 +40,9 @@ weights that sum to 1, so it resamples the depth alone: ``centre_depth``
 
 BatchNorm's eps is 1e-5. ``CasMVSNetModel`` binds the network to its
 parameters for inference and runs every conv with its eval-mode BatchNorm
-folded in (``mvsnet.fold``), each transposed conv as K5; training and the
-network's own ``forward`` keep the norms.
+folded in (``mvsnet.fold``), each U-Net's entry conv as K6, each
+transposed conv as K5 and each ``prob`` as K7; training and the network's
+own ``forward`` keep the norms.
 """
 import torch
 import torch.nn.functional as F

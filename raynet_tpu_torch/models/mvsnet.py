@@ -24,8 +24,9 @@ BatchNorm's eps is 1e-5. ``MVSNetModel`` binds the network to its
 parameters for inference and runs every conv with its eval-mode BatchNorm
 folded in (``cnn.fold_conv_norm``), so that no norm kernel runs. The
 U-Net's entry conv c0 runs with its ReLU as one op, K6
-(``ops.entry_conv3d``); another forward conv's ReLU stays its own op; each
-transposed conv runs with its ReLU and skip sum as one op, K5
+(``ops.entry_conv3d``); its last conv ``prob`` with its bias (if any) as
+one op, K7 (``ops.prob_conv3d``); another forward conv's ReLU stays its
+own op; each transposed conv runs with its ReLU and skip sum as one op, K5
 (``ops.transposed_conv3d``), which writes the result over the skip.
 Training, and the network's own ``forward``, keep the norms.
 """
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.entry_conv3d import CHANNELS as K6_CHANNELS, entry_conv3d
+from ..ops.prob_conv3d import CHANNELS as K7_CHANNELS, prob_conv3d
 from ..ops.transposed_conv3d import transposed_conv3d
 from ..utils.generic_utils import resolve_device
 from .cnn import FoldCache, fold_conv_norm
@@ -225,7 +227,10 @@ def _folded_call(module, weight, bias):
     ``call(x, skip)``, its ReLU and skip sum in the kernel. A 3D block of a
     3x3x3 conv of stride 1 from one of K6's channel pairs
     (``entry_conv3d.CHANNELS``: the U-Net's c0, and no other layer of
-    either U-Net) runs as K6, its ReLU in the kernel."""
+    either U-Net) runs as K6, its ReLU in the kernel. A plain 3x3x3 conv of
+    stride 1 from K7's channel pair (``prob_conv3d.CHANNELS``: 8 -> 1, the
+    U-Net's prob, and no other layer of either network) runs as K7, its
+    bias, if any, in the kernel."""
     conv = module.layers()[0] if hasattr(module, "layers") else module
     relu = conv is not module
     if conv.transposed:
@@ -233,13 +238,19 @@ def _folded_call(module, weight, bias):
             return transposed_conv3d(x, weight, bias, skip)
 
         return upsample
-    if (relu and conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1)
-            and conv.padding == (1, 1, 1)
-            and (conv.in_channels, conv.out_channels) in K6_CHANNELS):
+    same = (conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1)
+            and conv.padding == (1, 1, 1))
+    pair = (conv.in_channels, conv.out_channels)
+    if relu and same and pair in K6_CHANNELS:
         def entry(x):
             return entry_conv3d(x, weight, bias)
 
         return entry
+    if not relu and same and pair in K7_CHANNELS:
+        def prob(x):
+            return prob_conv3d(x, weight, bias)
+
+        return prob
     op = functools.partial(F.conv2d if weight.dim() == 4 else F.conv3d,
                            stride=conv.stride, padding=conv.padding)
 

@@ -59,6 +59,7 @@ SIGNATURES = {
     "raynet_cost_volume": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "raynet_transposed_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "raynet_entry_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "raynet_prob_conv3d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "raynet_probe_tma_box": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "raynet_probe_tf32_dot": (_P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -40,14 +40,18 @@ to the plane mode bit for bit; K5 (the U-Net's transposed convs) within 2**-18
 of each output's sum of absolute terms of its plain version; K6 (the
 U-Net's entry conv) within 2**-18 of each output's sum of absolute terms
 of the float64 conv3d, bias and ReLU, and equal to itself bit for bit on
-a second run; and the
+a second run; K7 (the U-Net's prob conv) within 2**-18 of each output's
+sum of absolute terms of the float64 conv3d at seven planes and of its
+plain version over the whole volume, with and without its bias, and
+equal to itself bit for bit on a second run; and the
 MVSNet pass's depths within 1e-3 of a plane interval of the CPU pass's on
 >= 0.999 of the pixels, the CasMVSNet pass's within 5e-3 of its last
 stage's interval (its first two stages' errors carry into the last stage's
 hypotheses, see ``tests/test_torch_casmvsnet.py``); in a traced pass of
 either at the cells' widths, each volume's 11 U-Net layer timers within 3%
-of its "Cost regularization" phase, and the entry conv's timers within 10%
-of K6's device time in the same trace.
+of its "Cost regularization" phase, and the entry conv's and the prob
+conv's timers each within 10% of K6's and K7's device time in the same
+trace.
 """
 import contextlib
 import time
@@ -75,6 +79,7 @@ from raynet_tpu_torch.ops import cost_volume as cv
 from raynet_tpu_torch.ops import entry_conv3d as ec
 from raynet_tpu_torch.ops import fused
 from raynet_tpu_torch.ops import planesweep as ps
+from raynet_tpu_torch.ops import prob_conv3d as pc
 from raynet_tpu_torch.ops import ray_marching as rm
 from raynet_tpu_torch.ops import transposed_conv3d as tc
 from raynet_tpu_torch.ops import voxel_depth as vd
@@ -1039,18 +1044,23 @@ def _entry_conv_inputs(device, cin, shape, seed=5):
     return x, w, b
 
 
-def _exact_planes(x, w, b, lo, hi):
-    """The float64 layer's output planes lo..hi - 1 and the sum of their
-    terms' magnitudes: conv3d of the planes lo - 1 .. hi, a zero plane
-    past either end of the volume."""
+def _exact_planes(x, w, b, lo, hi, relu=True):
+    """The float64 layer's output planes lo..hi - 1 (the ReLU where
+    ``relu``, no bias where ``b`` is None) and the sum of their terms'
+    magnitudes: conv3d of the planes lo - 1 .. hi, a zero plane past
+    either end of the volume."""
     D = x.shape[2]
     xs = x[:, :, max(lo - 1, 0):min(hi + 1, D)].double()
     xs = torch.nn.functional.pad(
         xs, (0, 0, 0, 0, max(1 - lo, 0), max(hi + 1 - D, 0)))
-    w, b = w.double(), b.double()
+    w = w.double()
+    b = None if b is None else b.double()
     conv = torch.nn.functional.conv3d
-    exact = torch.relu(conv(xs, w, b, padding=(0, 1, 1)))
-    scale = conv(xs.abs(), w.abs(), b.abs(), padding=(0, 1, 1))
+    exact = conv(xs, w, b, padding=(0, 1, 1))
+    if relu:
+        exact = torch.relu(exact)
+    scale = conv(xs.abs(), w.abs(), None if b is None else b.abs(),
+                 padding=(0, 1, 1))
     return exact, scale
 
 
@@ -1101,9 +1111,84 @@ def test_entry_conv3d_kernel_rejects_what_it_cannot_take(cuda):
         ec.entry_conv3d(x, w.cpu(), b)
 
 
+def _prob_conv_inputs(device, shape, seed=7):
+    """A K7 layer's input (non-negative, as the skip sum before it),
+    weight and bias, drawn on the card."""
+    g = torch.Generator(device=device).manual_seed(seed + sum(shape))
+    x = torch.relu(torch.randn((1, 8) + shape, generator=g, device=device))
+    w = torch.randn((1, 8, 3, 3, 3), generator=g, device=device) \
+        * (1.0 / 216) ** 0.5
+    b = torch.randn((1,), generator=g, device=device)
+    return x, w, b
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("shape", [
+    # prob of MVSNet and of CasMVSNet's three stages, as the passes run it
+    (256, 296, 400), (48, 296, 400), (32, 592, 800), (8, 1184, 1600),
+    # runs along D of 3 planes and a last run of 1 (10 planes over 65
+    # tiles); off the block's 32 columns and 64 rows, D = 1 and 2 (every
+    # output reads a zero plane)
+    (10, 296, 400), (3, 67, 36), (1, 5, 8), (2, 9, 36), (5, 1, 4),
+    (2, 70, 36), (7, 130, 100),
+])
+def test_prob_conv3d_kernel_matches_float64(cuda, shape, with_bias):
+    """K7 against the float64 conv3d, with MVSNet's bias and without
+    (CasMVSNet's): within 2**-18 of each output's sum of absolute terms
+    (|b| + sum |x| |w|), as K6. Checked at the first two, the middle three
+    and the last two planes of shapes deeper than 8, at every plane of the
+    others; at every plane of every shape against the plain version on the
+    card, within 2**-18 of the same sum (MVSNet's runs break at planes 64,
+    128 and 192, a wrong hand-off between runs or a raced stage shows
+    anywhere); one launch counted, and a second run equal bit for bit."""
+    x, w, b = _prob_conv_inputs(cuda, shape)
+    b = b if with_bias else None
+    before = pc.prob_conv3d.launches
+    got = pc.prob_conv3d(x, w, b)
+    assert pc.prob_conv3d.launches == before + 1
+    assert got.shape == (1, 1) + shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    D = shape[0]
+    spans = ([(0, 2), (D // 2 - 1, D // 2 + 2), (D - 2, D)] if D > 8
+             else [(0, D)])
+    for lo, hi in spans:
+        exact, scale = _exact_planes(x, w, b, lo, hi, relu=False)
+        err = (got[:, :, lo:hi].double() - exact).abs()
+        assert (err <= 2.0 ** -18 * scale).all(), (lo, hi)
+    del exact, scale, err
+    want = pc.prob_conv3d_reference(x, w, b)
+    scale = pc.prob_conv3d_reference(x, w.abs(),
+                                     None if b is None else b.abs())
+    assert ((got - want).abs() <= 2.0 ** -18 * scale).all()
+    del want, scale
+    assert torch.equal(pc.prob_conv3d(x, w, b), got)
+
+
+def test_prob_conv3d_kernel_rejects_what_it_cannot_take(cuda):
+    x, w, b = _prob_conv_inputs(cuda, (2, 4, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        pc.prob_conv3d(x.transpose(3, 4).contiguous().transpose(3, 4), w, b)
+    with pytest.raises(ValueError, match="no kernel for 8 -> 2"):
+        pc.prob_conv3d(x, torch.cat([w, w]), torch.cat([b, b]))
+    with pytest.raises(ValueError, match="no kernel for 16 -> 1"):
+        pc.prob_conv3d(torch.cat([x, x], 1), torch.cat([w, w], 1), b)
+    with pytest.raises(ValueError, match="float32"):
+        pc.prob_conv3d(x.double(), w, b)
+    with pytest.raises(ValueError, match="weight is on cpu"):
+        pc.prob_conv3d(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="bias is on cpu"):
+        pc.prob_conv3d(x, w, b.cpu())
+    with pytest.raises(ValueError, match="W must be a multiple of 4"):
+        pc.prob_conv3d(x[..., :6].contiguous(), w, b)
+    with pytest.raises(ValueError, match="start on 16 bytes"):
+        pc.prob_conv3d(x.flatten()[1:1 + 8 * 2 * 4 * 4].view(1, 8, 2, 4, 4),
+                       w, b)
+
+
 def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
     """The MVSNet pass on a 128x96 ring rig (D = 16): one K4 launch, one
-    volume, one K6 launch and three K5 launches a view, the folded U-Net's
+    volume, one K6 launch, three K5 launches and one K7 a view, the folded
+    U-Net's
     depths within 1e-3 of a plane interval of the CPU pass's (cuDNN's and
     the CPU's convolutions sum in other orders) on >= 0.999 of the
     pixels."""
@@ -1113,6 +1198,7 @@ def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
     before = cv.cost_volume.launches
     before_k5 = tc.transposed_conv3d.launches
     before_k6 = ec.entry_conv3d.launches
+    before_k7 = pc.prob_conv3d.launches
     for dev in (cuda, torch.device("cpu")):
         model = MVSNetModel(seed=3, device=dev)
         fp = MVSNetForwardPass(model, gp, None, scene.image_shape,
@@ -1122,6 +1208,7 @@ def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
     assert cv.cost_volume.launches == before + 3
     assert tc.transposed_conv3d.launches == before_k5 + 9
     assert ec.entry_conv3d.launches == before_k6 + 3
+    assert pc.prob_conv3d.launches == before_k7 + 3
     assert volumes == {"cuda": 3, "cpu": 3}
     assert maps["cuda"].shape == (3, 24, 32)
     P = cv.feature_cameras([scene.get_image(0).camera.P], 0, 0)
@@ -1132,15 +1219,17 @@ def test_mvsnet_pass_on_the_card_matches_the_cpu(cuda):
 
 def test_casmvsnet_pass_on_the_card_matches_the_cpu(cuda):
     """The CasMVSNet pass on a 128x96 ring rig: K4 three times a view, the
-    later two in the per-pixel mode, nine K5 launches and three K6 a view
-    (three U-Nets of three and of one), three volumes a view, and the last
+    later two in the per-pixel mode, nine K5 launches, three K6 and three
+    K7 a view (three U-Nets of three, of one and of one), three volumes a
+    view, and the last
     stage's depths within 5e-3 of its interval of the CPU pass's on >=
     0.999 of the pixels."""
     scene = RingScene(4, 96, 128, 220.0, angle_origin=1, bbox_half=6.5)
     gp = type("GP", (), dict(neighbors=2))()
     maps, volumes = {}, {}
     before = (cv.cost_volume.launches, cv.cost_volume.per_pixel_launches,
-              tc.transposed_conv3d.launches, ec.entry_conv3d.launches)
+              tc.transposed_conv3d.launches, ec.entry_conv3d.launches,
+              pc.prob_conv3d.launches)
     for dev in (cuda, torch.device("cpu")):
         model = CasMVSNetModel(seed=3, device=dev)
         fp = CasMVSNetForwardPass(model, gp, None, scene.image_shape,
@@ -1148,8 +1237,10 @@ def test_casmvsnet_pass_on_the_card_matches_the_cpu(cuda):
         maps[dev.type] = np.stack(list(fp.forward_pass(scene, (0, 3, 1))))
         volumes[dev.type] = fp.volumes
     assert (cv.cost_volume.launches, cv.cost_volume.per_pixel_launches,
-            tc.transposed_conv3d.launches, ec.entry_conv3d.launches) == (
-        before[0] + 9, before[1] + 6, before[2] + 27, before[3] + 9)
+            tc.transposed_conv3d.launches, ec.entry_conv3d.launches,
+            pc.prob_conv3d.launches) == (
+        before[0] + 9, before[1] + 6, before[2] + 27, before[3] + 9,
+        before[4] + 9)
     assert volumes == {"cuda": 9, "cpu": 9}
     assert maps["cuda"].shape == (3, 96, 128)
     P = cv.feature_cameras([scene.get_image(0).camera.P], 0, 0)
@@ -1194,7 +1285,8 @@ def test_unet_layer_timers_sum_to_their_phase(cuda, cls, model_cls, volumes,
     """A traced pass of one reference view at the cells' widths (1600x1200,
     4 neighbours, D 256 in MVSNet): each volume's 11 layer timers, once
     each, sum to within 3% of its "Cost regularization" phase, and the
-    entry conv's timers to within 10% of K6's device time in the trace."""
+    entry conv's and the prob conv's timers to within 10% of K6's and
+    K7's device time in the trace."""
     scene = RingScene(5, 1200, 1600, 2750.0, angle_origin=2, bbox_half=6.5)
     gp = type("GP", (), dict(depth_planes=256, neighbors=4))()
     model = model_cls(seed=3, device=cuda)
@@ -1207,7 +1299,7 @@ def test_unet_layer_timers_sum_to_their_phase(cuda, cls, model_cls, volumes,
             maps = list(fp.forward_pass(scene, (2, 3, 1)))
             torch.cuda.synchronize()
     assert len(maps) == 1 and len(fp.timer.volumes) == volumes
-    conv0 = 0.0
+    conv0 = prob = 0.0
     for timer in fp.timer.volumes:
         assert all(timer.counts[label] == 1 for label in UNET_LABELS)
         totals = timer.totals
@@ -1215,7 +1307,12 @@ def test_unet_layer_timers_sum_to_their_phase(cuda, cls, model_cls, volumes,
         assert layers == pytest.approx(totals["Cost regularization"],
                                        rel=0.03)
         conv0 += totals["unet.conv0"]
+        prob += totals["unet.prob"]
     events = profiling.read_trace(str(tmp_path / profiling.TRACE_NAME))
-    k6 = sum(e - s for name, s, e in profiling.device_intervals(events)
+    intervals = profiling.device_intervals(events)
+    k6 = sum(e - s for name, s, e in intervals
              if "entry_conv3d_kernel" in name) * 1e-6
+    k7 = sum(e - s for name, s, e in intervals
+             if "prob_conv3d_kernel" in name) * 1e-6
     assert conv0 == pytest.approx(k6, rel=0.10)
+    assert prob == pytest.approx(k7, rel=0.10)

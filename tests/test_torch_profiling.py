@@ -6,7 +6,8 @@ layer in its "Cost regularization" phase; a view set's ``views.*`` spans
 open once a view set built; the timer sums ``perf_counter`` durations on
 the CPU in the format it always had. The card's half (phase times from
 CUDA events against a synced wall time, the layer timers against their
-phase and K6's device time) is in ``tests/test_torch_cuda_kernels.py``."""
+phase and K6's and K7's device time) is in
+``tests/test_torch_cuda_kernels.py``."""
 
 import numpy as np
 import pytest
